@@ -1,0 +1,57 @@
+"""Parameter bridge: a ``psg_tpu`` parameter tree -> this package's tree.
+
+The JAX package stores conv kernels HWIO and linear kernels ``[in, out]``;
+this package keeps ``[in, out]`` for linear kernels (and the fused attention
+``in_proj`` ``[C, 3C]``) and stores conv kernels OIHW.  Norm ``scale`` /
+``bias``, embedding tables and biases carry over unchanged.  Lists (BERT
+``layers``, UNet ``enc{lvl}``/``dec{lvl}``) stay lists; a flax msgpack
+checkpoint spells them as dicts keyed ``'0'``, ``'1'``, ..., which become
+lists again here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _is_list_dict(d) -> bool:
+    return (isinstance(d, dict) and len(d) > 0
+            and sorted(d) == [str(i) for i in range(len(d))])
+
+
+def _leaf(name, a) -> torch.Tensor:
+    t = a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
+    if name == "w" and t.ndim == 4:  # HWIO -> OIHW
+        t = t.permute(3, 2, 0, 1)
+    return t.contiguous()
+
+
+def from_jax(tree, name: str = ""):
+    """Convert a JAX-layout parameter tree (numpy arrays or CPU tensors as
+    leaves, lists or ``'0'..'n'``-keyed dicts) to this package's layout."""
+    if _is_list_dict(tree):
+        return [from_jax(tree[str(i)], name) for i in range(len(tree))]
+    if isinstance(tree, dict):
+        return {k: from_jax(v, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [from_jax(v, name) for v in tree]
+    return _leaf(name, tree)
+
+
+def fit(template, tree, path: str = "params"):
+    """Check that ``tree`` has ``template``'s structure and leaf shapes and
+    return it with the template's dtypes and devices; raise on any mismatch."""
+    if isinstance(template, dict):
+        if not isinstance(tree, dict) or set(tree) != set(template):
+            got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+            raise ValueError(f"{path}: expected keys {sorted(template)}, got {got}")
+        return {k: fit(template[k], tree[k], f"{path}.{k}") for k in template}
+    if isinstance(template, list):
+        if not isinstance(tree, list) or len(tree) != len(template):
+            raise ValueError(f"{path}: expected a list of {len(template)}")
+        return [fit(t, x, f"{path}[{i}]") for i, (t, x) in enumerate(zip(template, tree))]
+    if not isinstance(tree, torch.Tensor) or tuple(tree.shape) != tuple(template.shape):
+        got = tuple(tree.shape) if isinstance(tree, torch.Tensor) else type(tree).__name__
+        raise ValueError(f"{path}: expected shape {tuple(template.shape)}, got {got}")
+    return tree.to(device=template.device, dtype=template.dtype)

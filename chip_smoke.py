@@ -8,7 +8,10 @@ imports nothing of JAX or psg_tpu, exits non-zero at the first failure, and
 prints one JSON line per phase:
 
 1. ``build``    the card's name and power limit; the three kernel libraries
-                built from ``psg_tpu_torch/csrc/`` (one nvcc each, in parallel).
+                built from ``psg_tpu_torch/csrc/`` (one nvcc each, in parallel),
+                with ptxas's register and spill lines.  The bf16 flash kernels
+                must hold tensor-core instructions (HMMA/HGMMA, counted in
+                ``cuobjdump -sass``) and spill nothing.
 2. ``kernels_vs_plain``  every kernel against its plain PyTorch version on
                 the card at the full-width main path's shapes, in fp32 (TF32
                 off) and bf16: max error against the stated tolerance, and
@@ -43,6 +46,7 @@ import argparse
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -93,6 +97,51 @@ def card_line():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# build
+# ---------------------------------------------------------------------------
+
+TENSOR_CORE_KERNELS = ("flash_attention", "flash_bf16")  # library, kernel name part
+
+
+def spilled(nvcc_output, name_part):
+    """Spill bytes (stores + loads) of every function whose name holds
+    ``name_part``, from ptxas -v."""
+    out, fn = {}, None
+    for ln in nvcc_output.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and fn and name_part in fn:
+            out[fn] = int(m.group(1)) + int(m.group(2))
+    return out
+
+
+def tensor_core_instructions(lib_path, name_part):
+    """HMMA and HGMMA instructions in the SASS of each function whose name
+    holds ``name_part`` (``cuobjdump -sass``)."""
+    from psg_tpu_torch.ops import cuda_build
+
+    sass = subprocess.run([cuda_build.cuda_tool("cuobjdump"), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1) if name_part in m.group(1) else None
+            if fn:
+                counts[fn] = {"HMMA": 0, "HGMMA": 0}
+            continue
+        if fn:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", ln):
+                    counts[fn][op] += 1
+                    break
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -516,13 +565,23 @@ def main(argv=None):
     print(card, flush=True)
     t = time.perf_counter()
     built = cuda_build.build_all(ops.KERNELS)
+    build_s = time.perf_counter() - t
+    lib_name, kernel_part = TENSOR_CORE_KERNELS
+    lib = next(k for k in ops.KERNELS if k.name == lib_name)
+    tc = tensor_core_instructions(lib.path, kernel_part)
+    spills = spilled(built[lib_name]["nvcc_output"], kernel_part)
     emit("build", {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-                   "seconds": time.perf_counter() - t,
+                   "seconds": build_s,
                    "kernels": {k: {"built": v["built"], "seconds": v["seconds"],
                                    "ptxas": [ln.strip() for ln in
                                              v["nvcc_output"].splitlines()
                                              if "registers" in ln or "spill" in ln]}
-                               for k, v in built.items()}})
+                               for k, v in built.items()},
+                   "tensor_core_instructions": tc, "spill_bytes": spills})
+    if not tc or any(c["HMMA"] + c["HGMMA"] == 0 for c in tc.values()):
+        fail(f"the bf16 flash kernels hold no tensor-core instruction: {tc}")
+    if not spills or any(spills.values()):
+        fail(f"the bf16 flash kernels spill (or ptxas printed nothing): {spills}")
 
     t = time.perf_counter()
     results = [run_case(c) for c in main_path_cases()]

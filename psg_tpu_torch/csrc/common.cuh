@@ -1,5 +1,6 @@
 // Helpers shared by the psg_tpu_torch kernels: element loads and stores in
-// fp32 or bf16, and the error-string export every library carries.
+// fp32 or bf16, asynchronous global -> shared copies, and the error-string
+// export every library carries.
 //
 // Each .cu file is built into its own shared library with a plain C
 // interface (see ops/cuda_build.py).  dtype codes passed from Python:
@@ -8,6 +9,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace psg {
 
@@ -26,6 +29,9 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 constexpr int kFloat32 = 0;
 constexpr int kBFloat16 = 1;
 
+// Shared memory a Hopper block may use.
+constexpr size_t kSmemLimit = 232448;
+
 // Raise the dynamic shared-memory limit of `kernel` when a launch needs more
 // than the default 48 KB.
 template <typename K>
@@ -33,6 +39,38 @@ inline cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte cp.async; `valid` false zero-fills the destination and reads
+// nothing.  Both addresses are 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4-byte cp.async; `valid` false zero-fills.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 }  // namespace psg

@@ -40,10 +40,18 @@ def sdpa(q, k, v, *, bias=None, scale=None):
     """Scaled dot-product attention.
 
     q: [B, H, Lq, D], k/v: [B, H, Lk, D], bias: None or [B, 1, 1, Lk].
+    Head views are passed as they are: the kernel takes strides, and only an
+    operand whose last dimension is strided (``compat_reshape``'s K/V) is
+    copied.  On the card the output is a [B, H, Lq, D] view of [B, Lq, H, D]
+    memory, so ``out.transpose(1, 2).reshape(B, Lq, H * D)`` is a view.
     Mixed dtypes compute in the widest one (as the reference's einsum
     promotion does) and return q's dtype."""
     dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
-    out = flash_attention.flash_sdpa(
-        q.to(dt).contiguous(), k.to(dt).contiguous(), v.to(dt).contiguous(),
-        bias=bias, scale=scale)
+    out = flash_attention.flash_sdpa(_rows_contiguous(q.to(dt)),
+                                     _rows_contiguous(k.to(dt)),
+                                     _rows_contiguous(v.to(dt)), bias=bias, scale=scale)
     return out.to(q.dtype)
+
+
+def _rows_contiguous(t):
+    return t if t.stride(-1) == 1 else t.contiguous()

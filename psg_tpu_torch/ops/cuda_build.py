@@ -29,15 +29,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _COMMON_HEADER = CSRC / "common.cuh"
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump)."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     if CUDA_HOME is None:
         raise RuntimeError("CUDA toolkit not found: set CUDA_HOME or put nvcc "
                            "on PATH")
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    return str(Path(CUDA_HOME) / "bin" / name)
 
 
 class KernelLibrary:
@@ -59,10 +61,15 @@ class KernelLibrary:
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.source.stem}-{h.hexdigest()[:12]}.so"
 
+    @property
+    def log_path(self) -> Path:
+        """nvcc's output (ptxas -v) of the build at ``path``."""
+        return self.path.with_suffix(".log")
+
     def _start_build(self):
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = self.path.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+        cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
                str(self.source)]
         return tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True)
@@ -73,6 +80,7 @@ class KernelLibrary:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed for {self.source.name} "
                                f"(exit {proc.returncode}):\n{out}")
+        self.log_path.write_text(out)
         os.replace(tmp, self.path)  # atomic: concurrent builds agree
         return out
 
@@ -101,7 +109,8 @@ class KernelLibrary:
 def build_all(libs: Iterable[KernelLibrary]) -> Dict[str, dict]:
     """Build every library that has no build yet, one ``nvcc`` per source,
     all started together.  Returns per-library build seconds and compiler
-    output (``-Xptxas -v``: registers, shared memory, spills)."""
+    output (``-Xptxas -v``: registers, shared memory, spills; kept beside
+    each library, so a library built earlier reports it too)."""
     libs = list(libs)
     t0 = time.perf_counter()
     started = {lib.name: lib._start_build() for lib in libs
@@ -109,7 +118,8 @@ def build_all(libs: Iterable[KernelLibrary]) -> Dict[str, dict]:
     report, errors = {}, []
     for lib in libs:  # wait for every nvcc before raising on any
         report[lib.name] = {"built": lib.name in started, "seconds": 0.0,
-                            "nvcc_output": ""}
+                            "nvcc_output": (lib.log_path.read_text()
+                                            if lib.log_path.exists() else "")}
         if lib.name in started:
             try:
                 report[lib.name]["nvcc_output"] = lib._finish_build(*started[lib.name])
@@ -123,14 +133,16 @@ def build_all(libs: Iterable[KernelLibrary]) -> Dict[str, dict]:
     return report
 
 
-def check_cuda_tensor(name: str, t: torch.Tensor, dtype=None) -> None:
-    """The checks every wrapper makes before handing a pointer to a kernel."""
+def check_cuda_tensor(name: str, t: torch.Tensor, dtype=None, *,
+                      contiguous: bool = True) -> None:
+    """The checks every wrapper makes before handing a pointer to a kernel
+    (``contiguous=False`` for a kernel that takes strides)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.device.index != torch.cuda.current_device():
         raise ValueError(f"{name}: tensor on {t.device}, but the current "
                          f"device is cuda:{torch.cuda.current_device()}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
     if dtype is not None and t.dtype not in dtype:
         raise TypeError(f"{name}: dtype {t.dtype} not supported "

@@ -1,10 +1,15 @@
 """Short-KV scaled dot-product attention: Hopper kernel and plain version.
 
 Port of ``psg_tpu/ops/flash_attention.py::flash_sdpa`` (the TPU kernel's
-``pallas_call`` at line 92).  The kernel is ``csrc/flash_attention.cu``:
-key tiles streamed through shared memory with an online softmax, any head
-dim whose tiles fit a block's shared memory (the model uses 4..320), ragged
-edges masked in the kernel.
+``pallas_call`` at line 92).  The kernel is ``csrc/flash_attention.cu``: in
+bf16, ``mma.sync`` tensor-core products over key tiles streamed through
+shared memory with an online softmax, head dims up to 320; in fp32 (parity
+runs), CUDA cores.  Ragged edges are masked in the kernel.
+
+Operands are strided: q, k and v may be head views ``[B, H, L, D]`` of a
+projection in any layout whose last dimension is contiguous, and the output
+is written in ``[B, Lq, H, D]`` memory order and returned as its
+``[B, H, Lq, D]`` view, so merging the heads back is a view too.
 
 Bias contract (as on the TPU): ``None`` or a per-key additive bias of shape
 ``[B, 1, 1, Lk]``; any other shape raises.
@@ -20,12 +25,12 @@ from psg_tpu_torch.ops import cuda_build as cb
 
 KERNEL = cb.KernelLibrary(
     "flash_attention", "flash_attention.cu",
-    {"psg_flash_attention": (ctypes.c_int, [ctypes.c_void_p] * 5
+    {"psg_flash_attention": (ctypes.c_int, [ctypes.c_void_p] * 6
                              + [ctypes.c_int] * 5
                              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
-     "psg_flash_attention_smem_bytes": (ctypes.c_size_t, [ctypes.c_int])})
+     "psg_flash_attention_smem_bytes": (ctypes.c_size_t, [ctypes.c_int] * 6)})
 
-SMEM_LIMIT = 232448  # bytes a Hopper block may use
+_Strides = ctypes.c_longlong * 12
 
 
 def _key_bias(bias, b: int, lk: int):
@@ -55,34 +60,47 @@ def sdpa_plain(q, k, v, *, bias=None, scale=None):
     return out.to(q.dtype)
 
 
+def _check_operand(name: str, t: torch.Tensor) -> None:
+    cb.check_cuda_tensor(f"flash_sdpa {name}", t, cb.DTYPE_CODES, contiguous=False)
+    if t.stride(-1) != 1 and t.shape[-1] > 1:
+        raise ValueError(f"flash_sdpa {name}: the last dimension must be contiguous, "
+                         f"got strides {t.stride()}")
+
+
 def _launch(q, k, v, key_bias, scale: float):
     b, h, lq, d = q.shape
     lk = k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v)):
-        cb.check_cuda_tensor(f"flash_sdpa {name}", t, cb.DTYPE_CODES)
+        _check_operand(name, t)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("flash_sdpa: q, k and v must share one dtype")
     if tuple(k.shape) != (b, h, lk, d) or tuple(v.shape) != (b, h, lk, d):
         raise ValueError(f"flash_sdpa: k/v shapes {tuple(k.shape)}, "
                          f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
     lib = KERNEL.lib()
-    smem = lib.psg_flash_attention_smem_bytes(d)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"flash_sdpa: head dim {d} needs {smem} bytes of "
-                         f"shared memory (> {SMEM_LIMIT})")
+    code = cb.DTYPE_CODES[q.dtype]
+    smem = lib.psg_flash_attention_smem_bytes(b, h, lq, lk, d, code)
+    if smem == 0 or smem > cb.SMEM_LIMIT:
+        raise ValueError(f"flash_sdpa: head dim {d} does not fit the {q.dtype} "
+                         f"kernel ({smem} bytes of shared memory; bf16 takes "
+                         f"D <= 320)")
     if key_bias is not None:
         cb.check_cuda_tensor("flash_sdpa bias", key_bias)
-    o = torch.empty_like(q)
+    # [B, Lq, H, D] memory, returned as the [B, H, Lq, D] view
+    o = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    strides = _Strides(*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                       *o.stride()[:3])
     rc = lib.psg_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         key_bias.data_ptr() if key_bias is not None else None, o.data_ptr(),
-        b, h, lq, lk, d, float(scale), cb.DTYPE_CODES[q.dtype], cb.stream_ptr())
+        strides, b, h, lq, lk, d, float(scale), code, cb.stream_ptr())
     KERNEL.check(rc)
     return o
 
 
 def flash_sdpa(q, k, v, *, bias=None, scale=None):
-    """q: [B,H,Lq,D], k/v: [B,H,Lk,D] -> [B,H,Lq,D].
+    """q: [B,H,Lq,D], k/v: [B,H,Lk,D] -> [B,H,Lq,D] (a view of [B,Lq,H,D]
+    memory on the card).
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
     raises."""

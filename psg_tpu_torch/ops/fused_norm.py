@@ -2,9 +2,11 @@
 
 Port of ``psg_tpu/ops/fused_norm.py::fused_group_norm_silu`` (the TPU
 kernel's ``pallas_call`` at line 83).  The kernel is
-``csrc/group_norm_silu.cu``: a split reduction (per row-chunk partial
-statistics, a fixed-order combine per (sample, group), then a normalize
-pass) with two-pass/Chan statistics in fp32; its source note says why.
+``csrc/group_norm_silu.cu``: one launch per call where a sample fits a
+thread-block cluster (every UNet site in bf16), with the statistics
+exchanged through distributed shared memory; two launches and one workspace
+otherwise.  Statistics are two-pass in fp32 and summed in a fixed order;
+its source note gives the boundary between the paths.
 """
 
 from __future__ import annotations
@@ -19,14 +21,13 @@ from psg_tpu_torch.ops import cuda_build as cb
 
 KERNEL = cb.KernelLibrary(
     "group_norm_silu", "group_norm_silu.cu",
-    {"psg_group_norm_silu": (ctypes.c_int, [ctypes.c_void_p] * 6
-                             + [ctypes.c_int] * 5
+    {"psg_group_norm_silu": (ctypes.c_int, [ctypes.c_void_p] * 5
+                             + [ctypes.c_int] * 4
                              + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                                ctypes.c_void_p])})
+                                ctypes.c_void_p]),
+     "psg_group_norm_silu_workspace_bytes": (ctypes.c_longlong, [ctypes.c_int] * 5)})
 
 MAX_GROUPS = 32
-# elements of one sample a block reduces in pass 1 (fp32: 32 KB)
-CHUNK_ELEMENTS = 8192
 
 
 def group_norm_silu_plain(params, x, num_groups: int, *, eps: float = 1e-5,
@@ -50,18 +51,19 @@ def _launch(params, x, num_groups: int, eps: float, silu: bool):
     if scale.numel() != c or bias.numel() != c:
         raise ValueError("group_norm_silu: scale/bias must have C elements")
     s = x.numel() // (b * c)
-    rows = max(1, CHUNK_ELEMENTS // c)
-    nchunks = -(-s // rows)
-    # per-chunk partial (mean, M2), then per-group (mean, rstd)
-    part = torch.empty((b, nchunks, num_groups, 2), dtype=torch.float32,
-                       device=x.device)
-    stats = torch.empty((b, num_groups, 2), dtype=torch.float32, device=x.device)
+    lib = KERNEL.lib()
+    code = cb.DTYPE_CODES[x.dtype]
+    ws = lib.psg_group_norm_silu_workspace_bytes(b, s, c, num_groups, code)
+    if ws < 0:
+        raise ValueError(f"group_norm_silu: the kernel does not take C={c} "
+                         f"({x.dtype})")
+    # the split path's per-chunk (mean, M2); none on the one-launch path
+    part = torch.empty(ws // 4, dtype=torch.float32, device=x.device) if ws else None
     y = torch.empty_like(x)
-    rc = KERNEL.lib().psg_group_norm_silu(
+    rc = lib.psg_group_norm_silu(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-        part.data_ptr(), stats.data_ptr(), b, s, c, num_groups, rows, float(eps),
-        int(silu),
-        cb.DTYPE_CODES[x.dtype], cb.stream_ptr())
+        part.data_ptr() if part is not None else None, b, s, c, num_groups,
+        float(eps), int(silu), code, cb.stream_ptr())
     KERNEL.check(rc)
     return y
 

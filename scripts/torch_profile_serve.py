@@ -11,7 +11,8 @@ runs at batch 2N) under ``torch.profiler``.  For each it prints one JSON line:
 host wall time (ending in a sync; the mean of 3 runs without the profiler, and
 the profiled run's), the summed device time of its kernels,
 their number, the device's idle share (1 - kernel time / wall), and the
-device time by kernel family.  Needs one CUDA card; imports no JAX.
+device time and kernel count by kernel family (``copy`` is Tensor.copy_:
+``.contiguous()`` and dtype casts).  Needs one CUDA card; imports no JAX.
 """
 
 import argparse
@@ -29,14 +30,15 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 FAMILIES = (  # (family, substrings of the kernel name), first match wins
-    ("gn_silu (ours)", ("gn_partial_stats", "gn_combine", "gn_apply")),
-    ("flash (ours)", ("flash_kernel",)),
+    ("gn_silu (ours)", ("gn_cluster", "gn_chunk_stats", "gn_chunk_apply")),
+    ("flash (ours)", ("flash_bf16", "flash_f32")),
     ("spatial_xattn (ours)", ("spatial_xattn_kernel",)),
     ("conv (cuDNN)", ("conv", "implicit", "cudnn", "nhwc", "xmma_fprop", "sm90_xmma")),
     ("gemm", ("gemm", "cutlass", "sm90_", "ampere_", "cublas")),
     ("norm/softmax/reduce", ("norm", "softmax", "reduce", "welford")),
-    ("elementwise/copy", ("elementwise", "vectorized", "copy", "cat", "fill",
-                          "upsample", "index")),
+    # Tensor.copy_: .contiguous() and dtype casts
+    ("copy", ("copy",)),
+    ("elementwise", ("elementwise", "vectorized", "cat", "fill", "upsample", "index")),
 )
 
 
@@ -68,7 +70,8 @@ def profiled(name, fn, trace=None):
         wall_profiled = time.perf_counter() - t
     if trace:
         prof.export_chrome_trace(trace)
-    by_family, kernels, launches, top = defaultdict(float), 0.0, 0, []
+    by_family, count_by_family = defaultdict(float), defaultdict(int)
+    kernels, launches, top = 0.0, 0, []
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -76,6 +79,7 @@ def profiled(name, fn, trace=None):
         kernels += us
         launches += evt.count
         by_family[family(evt.key)] += us
+        count_by_family[family(evt.key)] += evt.count
         top.append((us, evt.count, evt.key[:90]))
     top.sort(reverse=True)
     rec = {"component": name, "wall_ms": wall, "wall_ms_profiled": wall_profiled * 1e3,
@@ -83,6 +87,7 @@ def profiled(name, fn, trace=None):
            "device_idle_share": (1.0 - kernels / 1e3 / wall) if kernels else None,
            "by_family_ms": {k: v / 1e3 for k, v in sorted(by_family.items(),
                                                           key=lambda kv: -kv[1])},
+           "by_family_kernels": dict(count_by_family),
            "top": [{"ms": us / 1e3, "count": n, "kernel": k} for us, n, k in top[:8]]}
     print(json.dumps(rec), flush=True)
     return rec

@@ -68,6 +68,27 @@ def test_group_norm_silu_kernel(card, dtype, b, s, c, g, shift):
         torch.testing.assert_close(got.float(), ref.float(), **tol)
 
 
+# The GN kernel takes one launch (a thread-block cluster per sample) while a
+# sample's rows split 8 ways leave at most 128 KB a CTA: S <= 816 at C = 640
+# in bf16, S <= 408 in fp32.  These are the largest sample on that path and
+# the smallest past it.
+GN_BOUNDARY = {torch.bfloat16: (816, 817), torch.float32: (408, 409)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("side", [0, 1])
+@pytest.mark.parametrize("shift", [0.3, 1000.0])
+def test_group_norm_silu_paths_deterministic(card, dtype, side, shift):
+    s = GN_BOUNDARY[dtype][side]
+    test_group_norm_silu_kernel(card, dtype, 2, s, 640, 32, shift)
+    x = _randn((2, s, 640), 4, card, dtype, scale=2.0, shift=shift)
+    p = {"scale": _randn((640,), 5, card, scale=0.3, shift=1.0),
+         "bias": _randn((640,), 6, card, scale=0.1)}
+    first = fused_norm.fused_group_norm_silu(p, x, 32)
+    for _ in range(3):   # no atomics: repeat runs are bit-equal
+        assert torch.equal(fused_norm.fused_group_norm_silu(p, x, 32), first)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,lq,lk,d,masked", [
     (4, 12, 128, 128, 64, True),    # BERT-base
@@ -91,6 +112,67 @@ def test_flash_attention_kernel(card, dtype, b, h, lq, lk, d, masked):
     ref = flash_attention.sdpa_plain(q, k, v, bias=bias, scale=d ** -0.5)
     assert got.dtype == dtype
     _close(got, ref, dtype)
+
+
+# bf16 flash attention at the 11 main-path shapes of chip_smoke.py phase 2
+@pytest.mark.parametrize("b,h,lq,lk,d,masked", [
+    (4, 12, 128, 128, 64, True),    # BERT-base
+    (1, 12, 128, 128, 64, True),    # BERT-base, one prompt
+    (8, 4, 196, 196, 160, False),   # UNet 14^2 self-attention
+    (8, 4, 196, 128, 160, True),    # UNet 14^2 cross-attention
+    (8, 4, 49, 49, 320, False),     # UNet 7^2 self-attention
+    (8, 4, 49, 128, 320, True),     # UNet 7^2 cross-attention
+    (8, 4, 16, 16, 320, False),     # UNet 4^2 self-attention
+    (8, 4, 16, 128, 320, True),     # UNet 4^2 cross-attention
+    (4, 8, 729, 128, 64, True),     # VAE 27^2, C 512
+    (4, 8, 729, 128, 32, True),     # VAE 27^2, C 256
+    (4, 8, 2916, 128, 16, True),    # VAE 54^2, C 128
+])
+def test_flash_attention_main_path_bf16(card, b, h, lq, lk, d, masked):
+    test_flash_attention_kernel(card, torch.bfloat16, b, h, lq, lk, d, masked)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [4, 6, 16, 160, 320])
+def test_flash_attention_head_dims(card, dtype, d):
+    test_flash_attention_kernel(card, dtype, 2, 3, 37, 70, d, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,l,d", [(2, 4, 196, 160), (2, 4, 49, 320), (2, 3, 21, 6)])
+def test_flash_attention_strided_operands(card, dtype, b, h, l, d):
+    """q, k and v as head views of one in_proj-shaped [B, L, 3C] tensor: the
+    kernel reads them in place, writes [B, L, H, D] memory, and gives the
+    bits it gives on contiguous copies."""
+    c = h * d
+    qkv = _randn((b, l, 3 * c), 3, card, dtype)
+    q, k, v = (qkv[..., i * c:(i + 1) * c].reshape(b, l, h, d).transpose(1, 2)
+               for i in range(3))
+    assert not q.is_contiguous() and q.stride(-1) == 1
+    ops.reset_launch_counts()
+    got = ops.sdpa(q, k, v)
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert got.shape == (b, h, l, d) and got.transpose(1, 2).is_contiguous()
+    merged = got.transpose(1, 2).reshape(b, l, c)
+    assert merged.data_ptr() == got.data_ptr()   # merging heads is a view
+    ref = flash_attention.flash_sdpa(q.contiguous(), k.contiguous(), v.contiguous())
+    assert torch.equal(got, ref)
+    _close(got, flash_attention.sdpa_plain(q, k, v, scale=d ** -0.5), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_all_keys_masked_but_one(card, dtype):
+    b, h, lq, lk, d = 3, 4, 40, 150, 64
+    q = _randn((b, h, lq, d), 0, card, dtype)
+    k = _randn((b, h, lk, d), 1, card, dtype)
+    v = _randn((b, h, lk, d), 2, card, dtype)
+    kept = torch.tensor([0, 77, lk - 1], device=card)
+    keep = torch.arange(lk, device=card)[None, :] == kept[:, None]
+    bias = torch.where(keep, 0.0, -1e9).float()[:, None, None, :]
+    got = flash_attention.flash_sdpa(q, k, v, bias=bias)
+    _close(got, flash_attention.sdpa_plain(q, k, v, bias=bias, scale=d ** -0.5), dtype)
+    want = v[torch.arange(b, device=card), :, kept][:, :, None, :].expand_as(got)
+    _close(got, want, dtype)
 
 
 def _spatial_operands(dev, dtype, b, l, c, s, seed=0, cold=False):
@@ -151,6 +233,15 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(card):
         flash_attention.flash_sdpa(big, big, big)                  # shared memory
     with pytest.raises(TypeError):
         flash_attention.flash_sdpa(q, q.bfloat16(), q)
+    for dt in (torch.float32, torch.bfloat16):                   # strided last dim
+        sq = torch.zeros(1, 2, 16, 16, device=card, dtype=dt)
+        with pytest.raises(ValueError):
+            flash_attention.flash_sdpa(sq.transpose(-1, -2), sq, sq)
+        with pytest.raises(ValueError):
+            flash_attention.flash_sdpa(sq, sq, sq.transpose(-1, -2))
+    wide = torch.zeros(1, 1, 8, 336, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        flash_attention.flash_sdpa(wide, wide, wide)               # bf16 D > 320
     for c in (24, 72):                                             # not built
         ops_ = _spatial_operands(card, torch.float32, 1, 16, c, 8)
         with pytest.raises(ValueError):

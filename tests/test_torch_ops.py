@@ -66,6 +66,50 @@ def test_sdpa_plain_matches_xla(b, h, lq, lk, d, masked):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("b,h,lq,lk,d", [
+    (2, 2, 32, 24, 16),     # hd 16 (the VAE's 54^2 site, narrow)
+    (1, 3, 33, 17, 6),      # odd everything (tiny configs)
+])
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_sdpa_matches_pallas_interpret(b, h, lq, lk, d, masked):
+    """The port's flash_sdpa against the TPU kernel itself, run in interpret
+    mode as tests/test_ops.py runs it."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from psg_tpu.ops.flash_attention import flash_sdpa as jax_flash
+
+    rng = np.random.RandomState(2)
+    q, k, v = (rng.randn(b, h, n, d).astype(np.float32) for n in (lq, lk, lk))
+    bias = None
+    if masked:
+        mask = np.ones((b, lk), np.int32)
+        mask[-1, lk // 3:] = 0
+        bias = np.where(mask[:, None, None, :] > 0, 0.0, -1e9).astype(np.float32)
+    with pltpu.force_tpu_interpret_mode():
+        ref = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                        bias=None if bias is None else jnp.asarray(bias))
+    got = flash_sdpa(_t(q), _t(k), _t(v), bias=None if bias is None else _t(bias))
+    # fp32 on both sides; only summation order differs (the TPU kernel pads
+    # the keys to 128 with -1e9 bias, whose exp() is exactly 0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("b,l,h,d", [(2, 49, 4, 8), (1, 16, 2, 6)])
+def test_sdpa_takes_head_views_of_one_projection(b, l, h, d):
+    """q, k and v as transposed (non-contiguous) head views of one
+    [B, L, 3C] tensor, as an in_proj gives them: the same values as on
+    contiguous copies."""
+    c = h * d
+    qkv = _t(np.random.RandomState(3).randn(b, l, 3 * c).astype(np.float32))
+    q, k, v = (qkv[..., i * c:(i + 1) * c].reshape(b, l, h, d).transpose(1, 2)
+               for i in range(3))
+    assert not q.is_contiguous() and q.stride(-1) == 1
+    got = ops.sdpa(q, k, v)
+    ref = ops.sdpa(q.contiguous(), k.contiguous(), v.contiguous())
+    assert got.shape == (b, h, l, d)
+    torch.testing.assert_close(got, ref, rtol=1e-6, atol=1e-6)
+
+
 def test_sdpa_mixed_dtypes_promote_and_return_q_dtype():
     rng = np.random.RandomState(1)
     q = _t(rng.randn(1, 2, 8, 16).astype(np.float32)).bfloat16()

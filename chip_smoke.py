@@ -9,16 +9,19 @@ prints one JSON line per phase:
 
 1. ``build``    the card's name and power limit; the three kernel libraries
                 built from ``psg_tpu_torch/csrc/`` (one nvcc each, in parallel),
-                with ptxas's register and spill lines.  The bf16 flash kernels
-                must hold tensor-core instructions (HMMA/HGMMA, counted in
-                ``cuobjdump -sass``) and spill nothing.
+                with ptxas's register and spill lines.  The bf16 flash and
+                spatial kernels must hold tensor-core instructions (HMMA/HGMMA,
+                counted in ``cuobjdump -sass``) and spill nothing.
 2. ``kernels_vs_plain``  every kernel against its plain PyTorch version on
                 the card at the full-width main path's shapes, in fp32 (TF32
                 off) and bf16: max error against the stated tolerance, and
                 device times of the kernel, the plain version and, where one
                 PyTorch call computes the same function, that call (timed as
-                a yardstick only), beside the least time the card could take
-                (bytes / 3.35 TB/s or operations / peak).  Device times come
+                a yardstick only; for the spatial block, which no one call
+                computes, the composite matmul + SDPA + matmul + residual),
+                beside the least time the card could take (bytes / 3.35 TB/s,
+                operations / peak, and for the spatial block the exponentials
+                of its live keys / the special-function unit's rate).  Device times come
                 from CUDA events around the replay of a CUDA graph of many
                 calls, so no host time is in them; ``call_ms`` is the
                 wrapper's eager time per call, host included, and
@@ -63,6 +66,7 @@ CONFIG = ROOT / "config" / "train_config.yaml"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM
 PEAK_FLOPS = {torch.bfloat16: 989e12,   # dense tensor-core bf16
               torch.float32: 67e12}     # fp32 outside the tensor cores
+EX2_PER_CLOCK_PER_SM = 16   # special-function unit, CUDA C Programming Guide, cc 9.0
 L2_BYTES = 50 * 2**20
 
 NEGATIVE = "blurry, low quality, deformed"
@@ -77,7 +81,13 @@ PROMPTS = ["a small green grass creature with a leaf on its head",
 # where the plain version rounds them to bf16 before the product with V.
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
-COLD_TOL_F32 = dict(rtol=2e-3, atol=2e-3)   # logits in the hundreds
+# spatial cold heads, logits in the hundreds.  fp32: the scores' rounding
+# and __expf's error grow with them.  bf16: kernel and plain version round
+# q * scale to bf16 at the same point but sum q in other orders, so a q
+# element can land one bf16 step apart (2^-8 of about 60), which moves one
+# head's score by about 0.25 and that pixel's output by up to about 0.1.
+COLD_TOL = {torch.float32: dict(rtol=2e-3, atol=2e-3),
+            torch.bfloat16: dict(rtol=2e-2, atol=1e-1)}
 E2E_MAE = 1e-3
 
 REPORT = {}
@@ -103,7 +113,8 @@ def card_line():
 # build
 # ---------------------------------------------------------------------------
 
-TENSOR_CORE_KERNELS = ("flash_attention", "flash_bf16")  # library, kernel name part
+TENSOR_CORE_KERNELS = (("flash_attention", "flash_bf16"),   # library, kernel name part
+                       ("spatial_xattn", "spatial_xattn_tc"))
 
 
 def spilled(nvcc_output, name_part):
@@ -198,10 +209,27 @@ def device_ms(fn, sets, reps, replays=5):
     return sorted(times)[replays // 2]
 
 
-def bound(nbytes, flops, flop_dtype):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[flop_dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+@functools.lru_cache(maxsize=None)
+def ex2_per_s():
+    """Exponentials a second on the special-function units at the card's
+    maximum SM clock (``nvidia-smi --query-gpu=clocks.max.sm``)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return EX2_PER_CLOCK_PER_SM * sms * mhz * 1e6
+
+
+def bound(nbytes, flops, flop_dtype, exps=0):
+    """The least time in ms (bytes, tensor or fp32 operations, exponentials),
+    what rules it ("bytes" or "operations") and each part."""
+    parts = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "flops": flops / PEAK_FLOPS[flop_dtype] * 1e3}
+    if exps:
+        parts["exp"] = exps / ex2_per_s() * 1e3
+    top = max(parts, key=parts.get)
+    return parts[top], "bytes" if top == "bytes" else "operations", parts
 
 
 def nbytes(*ts):
@@ -269,10 +297,27 @@ def flash_case(name, b, h, lq, lk, d, masked, dtype):
                 flop_dtype=dtype)
 
 
-def spatial_case(name, b, hw, c, s, cold, dtype):
+@functools.lru_cache(maxsize=None)
+def prompt_keys():
+    """[4, 128] bool: the keys the four PROMPTS keep under the committed
+    vocab (13, 12, 9 and 9), as serving's text mask gives them."""
+    from psg_tpu_torch.text.tokenizer import WordPieceTokenizer
+
+    _ids, mask = WordPieceTokenizer.from_vocab_file(VOCAB).encode_batch(PROMPTS, 128)
+    return torch.from_numpy(mask).cuda() > 0
+
+
+def spatial_case(name, b, hw, c, s, cold, dtype, prompt_mask=False):
     from psg_tpu_torch.ops import spatial_xattn as sx
 
     heads, scale = 8, (c // 8) ** -0.5
+    if prompt_mask:
+        keep = prompt_keys()
+    else:   # the last sample's prompt is a third of the text length
+        keep = torch.ones(b, s, device="cuda", dtype=torch.bool)
+        keep[-1, s // 3:] = False
+    # keys whose probability is not exactly 0 (all S where none is live)
+    live = [n or s for n in keep.sum(1).tolist()]
 
     def make(seed):
         xn = _randn((b, hw * hw, c), seed, dtype)
@@ -283,8 +328,6 @@ def spatial_case(name, b, hw, c, s, cold, dtype):
         wq = _randn((c, c), seed + 4, scale=c ** -0.5 * (120.0 if cold else 1.0))
         wp = _randn((c, c), seed + 5, scale=c ** -0.5)
         bq, bp = _randn((c,), seed + 6, scale=0.1), _randn((c,), seed + 7, scale=0.1)
-        keep = torch.ones(b, s, device=xn.device, dtype=torch.bool)
-        keep[-1, s // 3:] = False
         bias = torch.where(keep, 0.0, -1e9).float()[:, None, None, :]
         return xn, res, k, v, wq, bq, wp, bp, bias
 
@@ -298,13 +341,38 @@ def spatial_case(name, b, hw, c, s, cold, dtype):
             sx.split_heads(v, heads, False).contiguous(), wq, bq, wp, bp,
             key_bias=bias.reshape(b, s), scale=scale)
 
+    def composite(xn, res, k, v, wq, bq, wp, bp, bias):
+        """The block as PyTorch calls: matmul, SDPA with the key mask,
+        matmul and the residual (a yardstick; no one call computes it)."""
+        q = (torch.matmul(xn, wq.to(dtype)) + bq.to(dtype)).view(b, -1, heads, c // heads)
+        o = F.scaled_dot_product_attention(
+            q.transpose(1, 2), sx.split_heads(k.to(dtype), heads, False),
+            sx.split_heads(v.to(dtype), heads, False), attn_mask=bias.to(dtype))
+        o = o.transpose(1, 2).reshape(b, -1, c)
+        return torch.matmul(o, wp.to(dtype)) + bp.to(dtype) + res
+
     xn, res, k, v, wq, bq, wp, bp, bias = make(0)
-    tol = COLD_TOL_F32 if cold and dtype == torch.float32 else TOL[dtype]
     return dict(kernel_name="spatial_xattn", name=name, dtype=dtype, make=make,
-                kernel=kernel, plain=plain, library=None, tol=tol,
+                kernel=kernel, plain=plain, library=None, composite=composite,
+                tol=COLD_TOL[dtype] if cold else TOL[dtype],
                 bytes=3 * nbytes(xn) + nbytes(k, v, wq, bq, wp, bp, bias),
-                # Q projection, scores, P.V and output projection per pixel
-                flops=b * hw * hw * (4 * c * c + 4 * s * c), flop_dtype=dtype)
+                # per pixel: the two projections, and scores and P.V over the
+                # live keys; one exponential a head and live key
+                flops=hw * hw * sum(4 * c * c + 4 * n * c for n in live), flop_dtype=dtype,
+                exps=hw * hw * heads * sum(live))
+
+
+def spatial_cases(dtype):
+    """The spatial kernel's phase-2 cases: the decoder's two fused sites
+    with the last sample's prompt a third of the text, cold heads, and the
+    serving path's prompt masks."""
+    return [spatial_case("vae 108^2 C64", 4, 108, 64, 128, False, dtype),
+            spatial_case("vae 215^2 C32", 4, 215, 32, 128, False, dtype),
+            spatial_case("vae 215^2 C32 cold heads", 4, 215, 32, 128, True, dtype),
+            spatial_case("vae 108^2 C64 prompt mask", 4, 108, 64, 128, False, dtype,
+                         prompt_mask=True),
+            spatial_case("vae 215^2 C32 prompt mask", 4, 215, 32, 128, False, dtype,
+                         prompt_mask=True)]
 
 
 def main_path_cases():
@@ -330,10 +398,7 @@ def main_path_cases():
                 ("vae 27^2 xattn hd32", (4, 8, 729, 128, 32, True)),
                 ("vae 54^2 xattn hd16", (4, 8, 2916, 128, 16, True))):
             cases.append(flash_case(name, *shape, dtype))
-        cases.append(spatial_case("vae 108^2 C64", 4, 108, 64, 128, False, dtype))
-        cases.append(spatial_case("vae 215^2 C32", 4, 215, 32, 128, False, dtype))
-        cases.append(spatial_case("vae 215^2 C32 cold heads", 4, 215, 32, 128, True,
-                                  dtype))
+        cases += spatial_cases(dtype)
     return cases
 
 
@@ -350,10 +415,13 @@ def run_case(case):
         fail(f"{case['name']} {case['dtype']}: non-finite kernel output")
     err = (got.float() - ref.float()).abs().max().item()
     ok = torch.allclose(got.float(), ref.float(), **case["tol"])
-    lib_ms = None
+    lib_ms = composite_ms = None
     if case["library"] is not None:
         lib_ms = device_ms(case["library"], sets, 20)
-    b_ms, b_by = bound(case["bytes"], case["flops"], case["flop_dtype"])
+    if case.get("composite") is not None:
+        composite_ms = device_ms(case["composite"], sets, 10)
+    b_ms, b_by, b_parts = bound(case["bytes"], case["flops"], case["flop_dtype"],
+                                case.get("exps", 0))
     kernel_ms = device_ms(case["kernel"], sets, 30)
     call_ms = time_ms(case["kernel"], sets, 30)
     rec = dict(kernel=case["kernel_name"], name=case["name"],
@@ -362,7 +430,8 @@ def run_case(case):
                kernel_ms=kernel_ms, call_ms=call_ms,
                host_bound=call_ms > 1.5 * kernel_ms,
                plain_ms=device_ms(case["plain"], sets, 10), library_ms=lib_ms,
-               bound_ms=b_ms, bound_by=b_by)
+               composite_ms=composite_ms, bound_ms=b_ms, bound_by=b_by,
+               bound_parts_ms=b_parts)
     del sets, got, ref
     torch.cuda.empty_cache()   # the graphs' memory pools
     return rec
@@ -566,10 +635,11 @@ def main(argv=None):
     t = time.perf_counter()
     built = cuda_build.build_all(ops.KERNELS)
     build_s = time.perf_counter() - t
-    lib_name, kernel_part = TENSOR_CORE_KERNELS
-    lib = next(k for k in ops.KERNELS if k.name == lib_name)
-    tc = tensor_core_instructions(lib.path, kernel_part)
-    spills = spilled(built[lib_name]["nvcc_output"], kernel_part)
+    tc, spills = {}, {}
+    for lib_name, kernel_part in TENSOR_CORE_KERNELS:
+        lib = next(k for k in ops.KERNELS if k.name == lib_name)
+        tc.update(tensor_core_instructions(lib.path, kernel_part))
+        spills.update(spilled(built[lib_name]["nvcc_output"], kernel_part))
     emit("build", {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "seconds": build_s,
                    "kernels": {k: {"built": v["built"], "seconds": v["seconds"],
@@ -578,10 +648,13 @@ def main(argv=None):
                                              if "registers" in ln or "spill" in ln]}
                                for k, v in built.items()},
                    "tensor_core_instructions": tc, "spill_bytes": spills})
-    if not tc or any(c["HMMA"] + c["HGMMA"] == 0 for c in tc.values()):
-        fail(f"the bf16 flash kernels hold no tensor-core instruction: {tc}")
-    if not spills or any(spills.values()):
-        fail(f"the bf16 flash kernels spill (or ptxas printed nothing): {spills}")
+    for _lib, part in TENSOR_CORE_KERNELS:
+        counts = [c for f, c in tc.items() if part in f]
+        if not counts or any(c["HMMA"] + c["HGMMA"] == 0 for c in counts):
+            fail(f"the bf16 {part} kernels hold no tensor-core instruction: {tc}")
+        spill = [n for f, n in spills.items() if part in f]
+        if not spill or any(spill):
+            fail(f"the bf16 {part} kernels spill (or ptxas printed nothing): {spills}")
 
     t = time.perf_counter()
     results = [run_case(c) for c in main_path_cases()]
@@ -608,7 +681,8 @@ def main(argv=None):
                         "launches": serve["launches"][kname],
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                        "composite_ms": r["composite_ms"]})
     REPORT["total_s"] = time.perf_counter() - t_start
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

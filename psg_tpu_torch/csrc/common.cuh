@@ -1,6 +1,6 @@
 // Helpers shared by the psg_tpu_torch kernels: element loads and stores in
-// fp32 or bf16, asynchronous global -> shared copies, and the error-string
-// export every library carries.
+// fp32 or bf16, asynchronous global -> shared copies, tensor-core fragment
+// loads and products, and the error-string export every library carries.
 //
 // Each .cu file is built into its own shared library with a plain C
 // interface (see ops/cuda_build.py).  dtype codes passed from Python:
@@ -71,6 +71,70 @@ __device__ __forceinline__ void cp_async_wait() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// SMs of the current device (132 on an H100 SXM), read once.
+inline int num_sms() {
+  static int n = [] {
+    int dev = 0, v = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+      return 132;
+    return v;
+  }();
+  return n;
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core fragments (mma.sync, bf16 in, fp32 accumulate).  In a warp,
+// lane = 4 * g + tq: an m16n8 accumulator holds rows g (elements 0, 1) and
+// g + 8 (elements 2, 3) at columns 2 tq and 2 tq + 1.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a * b for one m16n8k16 tile.
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a * b for one m16n8k8 tile: a0 holds row g, a1 row g + 8, each at
+// columns 2 tq and 2 tq + 1 (an m16n8 accumulator's layout); b holds rows
+// 2 tq and 2 tq + 1 of column g.
+__device__ __forceinline__ void mma_k8(float (&d)[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
+// Two floats rounded to bf16; `lo` in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit; 2^-inf = 0.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 }  // namespace psg

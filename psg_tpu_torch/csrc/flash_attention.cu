@@ -239,21 +239,16 @@ constexpr int kMaxSplits = 4;   // column splits of O, so D <= 4 * 80
 constexpr int kPad = 8;         // bf16 elements of row padding: conflict-free ldmatrix
 constexpr int kWarpsPerSm = 4;  // warps a call should give each SM
 
+using psg::ldmatrix_x4;
+using psg::ldmatrix_x4_trans;
+using psg::mma;
+using psg::num_sms;
+using psg::pack_bf16;
+
 struct Plan {
   int dc, nw, splits, qblocks, stages;
   size_t smem;
 };
-
-int num_sms() {
-  static int n = [] {
-    int dev = 0, v = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-      return 132;
-    return v;
-  }();
-  return n;
-}
 
 // The launch shape for one call, from its sizes only; false if D > 320.
 bool make_plan(int B, int H, int Lq, int Lk, int D, Plan* p) {
@@ -293,33 +288,6 @@ bool make_plan(int B, int H, int Lq, int Lk, int D, Plan* p) {
     return true;
   }
   return false;
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a * b for one m16n8k16 tile, bf16 inputs, fp32 accumulator.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // Wait until at most n cp.async groups are pending (n < kMaxStages).

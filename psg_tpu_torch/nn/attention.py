@@ -106,8 +106,9 @@ def spatial_cross_attention(params, x, text_emb, num_heads: int = 8, *,
         # 1x1-conv kernels [Cout, Cin, 1, 1] -> [in, out]
         wq = params["q"]["w"].reshape(c, c).t()
         wp = params["proj"]["w"].reshape(c, c).t()
-        if dtype is not None:
+        if dtype is not None:   # the compute dtype, as psg_tpu/nn/attention.py:168-170
             xn = xn.to(dtype)
+            wq, wp = wq.to(dtype), wp.to(dtype)
         out = fused_spatial_xattn(
             xn.reshape(b, h * w, c).contiguous(),
             residual.to(xn.dtype).reshape(b, h * w, c).contiguous(),

@@ -10,6 +10,14 @@ all heads' K/V in shared memory, which is why it takes C <= 64, 8 heads and
 S <= 256.  It is built for the widths in ``CHANNELS`` only: the decoder's
 C <= 64 sites at width scales 1, 1/2 and 1/4 (the 108^2 and 215^2 sites at
 full width).
+
+In bf16 the block rounds where the TPU kernel rounds
+(``psg_tpu/ops/spatial_xattn.py:73-90``): Wq and Wp are bf16, and ``q *
+scale``, the probabilities and the attention output are rounded to bf16
+before their products; K, V, the biases, the scores and the softmax stay
+fp32.  A key whose bias is <= -1e8 (the text mask's -1e9) has a probability
+of exactly 0.0 in fp32 whenever its sample has a live key, so the kernel
+skips it.
 """
 
 from __future__ import annotations
@@ -23,7 +31,8 @@ from psg_tpu_torch.ops import cuda_build as cb
 KERNEL = cb.KernelLibrary(
     "spatial_xattn", "spatial_xattn.cu",
     {"psg_spatial_xattn": (ctypes.c_int, [ctypes.c_void_p] * 10
-                           + [ctypes.c_int] * 4
+                           + [ctypes.c_longlong] * 4
+                           + [ctypes.c_int] * 5
                            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])})
 
 CHANNELS = (8, 16, 32, 64)
@@ -44,50 +53,84 @@ def split_heads(t, num_heads: int, compat_reshape: bool):
     return t.reshape(b, s, num_heads, hd).transpose(1, 2)
 
 
-def spatial_xattn_plain(xn, residual, kh, vh, wq, bq, wp, bp, *, key_bias=None,
-                        scale: float):
-    """The kernel's function in plain PyTorch, on the kernel's operands:
-    xn/residual [B, L, C]; kh/vh [B, H, S, hd]; key_bias [B, S] or None;
-    wq/wp [C, C] ([in, out]).  fp32 throughout, output in xn's dtype."""
+def _rounding(dtype):
+    """Rounds a fp32 tensor where the TPU kernel rounds to its compute dtype:
+    to bf16 for bf16 activations, nowhere for fp32."""
+    if dtype == torch.bfloat16:
+        return lambda t: t.to(torch.bfloat16).float()
+    return lambda t: t
+
+
+def spatial_probs_plain(xn, kh, wq, bq, *, key_bias=None, scale: float):
+    """The block's attention probabilities [B, H, L, S] in plain PyTorch:
+    fp32 scores of ``q * scale`` against K plus the key bias, softmax with the
+    max subtracted per head.  bf16 ``xn`` rounds Wq and ``q * scale``."""
     b, l, c = xn.shape
     h = kh.shape[1]
-    q = torch.matmul(xn.float(), wq.float()) + bq.float()
-    qh = (q * scale).reshape(b, l, h, c // h).transpose(1, 2)      # [B,H,L,hd]
+    rnd = _rounding(xn.dtype)
+    q = torch.matmul(xn.float(), rnd(wq.float())) + bq.float()
+    qh = rnd(q * scale).reshape(b, l, h, c // h).transpose(1, 2)   # [B,H,L,hd]
     s = torch.matmul(qh, kh.float().transpose(-1, -2))             # [B,H,L,S]
     if key_bias is not None:
         s = s + key_bias.float()[:, None, None, :]
     # the max is per head: a global row max underflows a cold head's exp()
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
-    p = p / p.sum(dim=-1, keepdim=True)
+    return p / p.sum(dim=-1, keepdim=True)
+
+
+def spatial_xattn_plain(xn, residual, kh, vh, wq, bq, wp, bp, *, key_bias=None,
+                        scale: float):
+    """The kernel's function in plain PyTorch, on the kernel's operands:
+    xn/residual [B, L, C]; kh/vh [B, H, S, hd]; key_bias [B, S] or None;
+    wq/wp [C, C] ([in, out]).  fp32, with bf16's rounding points for bf16
+    ``xn``; output in xn's dtype."""
+    b, l, c = xn.shape
+    rnd = _rounding(xn.dtype)
+    p = rnd(spatial_probs_plain(xn, kh, wq, bq, key_bias=key_bias, scale=scale))
     o = torch.matmul(p, vh.float()).transpose(1, 2).reshape(b, l, c)
-    out = torch.matmul(o, wp.float()) + bp.float() + residual.float()
+    out = torch.matmul(rnd(o), rnd(wp.float())) + bp.float() + residual.float()
     return out.to(xn.dtype)
 
 
-def _launch(xn, residual, kh, vh, wq, bq, wp, bp, key_bias, scale: float):
+def _aligned16(t):
+    """``t``, or a copy of it whose data starts on a 16-byte boundary (the
+    bf16 kernel moves activation rows in 16-byte pieces)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(xn, residual, k, v, wq, bq, wp, bp, key_bias, scale: float,
+            num_heads: int, compat_reshape: bool):
     b, l, c = xn.shape
-    s = kh.shape[2]
-    if c not in CHANNELS or kh.shape[1] != HEADS or s > MAX_KEYS:
+    s = k.shape[1]
+    if c not in CHANNELS or num_heads != HEADS or s > MAX_KEYS:
         raise ValueError(
             f"fused_spatial_xattn: kernel takes C in {CHANNELS}, {HEADS} heads "
-            f"and S <= {MAX_KEYS}; got C={c}, heads={kh.shape[1]}, S={s}")
+            f"and S <= {MAX_KEYS}; got C={c}, heads={num_heads}, S={s}")
     cb.check_cuda_tensor("fused_spatial_xattn xn", xn, cb.DTYPE_CODES)
     cb.check_cuda_tensor("fused_spatial_xattn residual", residual, (xn.dtype,))
     if tuple(residual.shape) != (b, l, c):
         raise ValueError("fused_spatial_xattn: residual shape must equal xn's")
     f32 = (torch.float32,)
-    for name, t in (("k", kh), ("v", vh), ("wq", wq), ("bq", bq), ("wp", wp),
-                    ("bp", bp)):
+    for name, t, shape in (("k", k, (b, s, c)), ("v", v, (b, s, c)), ("bq", bq, (c,)),
+                           ("bp", bp, (c,))):
         cb.check_cuda_tensor(f"fused_spatial_xattn {name}", t, f32)
+        if tuple(t.shape) != shape:
+            raise ValueError(f"fused_spatial_xattn: {name} must be {shape}")
+    for name, t in (("wq", wq), ("wp", wp)):   # any strides: a transposed view is read in place
+        cb.check_cuda_tensor(f"fused_spatial_xattn {name}", t, (xn.dtype,),
+                             contiguous=False)
+        if tuple(t.shape) != (c, c):
+            raise ValueError(f"fused_spatial_xattn: {name} must be [{c}, {c}]")
     if key_bias is not None:
         cb.check_cuda_tensor("fused_spatial_xattn key_bias", key_bias, f32)
+    xn, residual = _aligned16(xn), _aligned16(residual)
     out = torch.empty_like(xn)
     rc = KERNEL.lib().psg_spatial_xattn(
-        xn.data_ptr(), residual.data_ptr(), kh.data_ptr(), vh.data_ptr(),
+        xn.data_ptr(), residual.data_ptr(), k.data_ptr(), v.data_ptr(),
         key_bias.data_ptr() if key_bias is not None else None,
-        wq.data_ptr(), bq.data_ptr(), wp.data_ptr(), bp.data_ptr(),
-        out.data_ptr(), b, l, s, c, float(scale), cb.DTYPE_CODES[xn.dtype],
-        cb.stream_ptr())
+        wq.data_ptr(), bq.data_ptr(), wp.data_ptr(), bp.data_ptr(), out.data_ptr(),
+        *wq.stride(), *wp.stride(), b, l, s, c, int(compat_reshape), float(scale),
+        cb.DTYPE_CODES[xn.dtype], cb.stream_ptr())
     KERNEL.check(rc)
     return out
 
@@ -98,8 +141,9 @@ def fused_spatial_xattn(xn, residual, k, v, wq, bq, wp, bp, *, num_heads: int,
 
     xn/residual: [B, L, C] (x already GroupNorm'd, flattened spatial);
     k, v: [B, S, C] text projections; wq/wp: [C, C] 1x1-conv kernels as
-    [in, out]; text_bias: [B, 1, 1, S] additive mask or None.
-    Returns [B, L, C] = proj(attn) + residual in xn's dtype.
+    [in, out], taken in xn's dtype as the reference casts them; text_bias:
+    [B, 1, 1, S] additive mask or None.  Returns [B, L, C] = proj(attn) +
+    residual in xn's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
     raises."""
@@ -107,14 +151,16 @@ def fused_spatial_xattn(xn, residual, k, v, wq, bq, wp, bp, *, num_heads: int,
     s = k.shape[1]
     if scale is None:
         scale = 1.0 / ((c // num_heads) ** 0.5)
-    kh = split_heads(k.float(), num_heads, compat_reshape).contiguous()
-    vh = split_heads(v.float(), num_heads, compat_reshape).contiguous()
     key_bias = None
     if text_bias is not None:
         key_bias = text_bias.reshape(b, s).float().contiguous()
-    operands = (xn, residual, kh, vh, wq.float().contiguous(),
-                bq.float().contiguous(), wp.float().contiguous(),
-                bp.float().contiguous())
+    wq, wp = wq.to(xn.dtype), wp.to(xn.dtype)
+    bq, bp = bq.float().contiguous(), bp.float().contiguous()
+    k, v = k.float().contiguous(), v.float().contiguous()
     if xn.device.type == "cpu":
-        return spatial_xattn_plain(*operands, key_bias=key_bias, scale=scale)
-    return _launch(*operands, key_bias, scale)
+        return spatial_xattn_plain(
+            xn, residual, split_heads(k, num_heads, compat_reshape),
+            split_heads(v, num_heads, compat_reshape), wq, bq, wp, bp,
+            key_bias=key_bias, scale=scale)
+    return _launch(xn, residual, k, v, wq, bq, wp, bp, key_bias, scale, num_heads,
+                   compat_reshape)

@@ -10,9 +10,10 @@ chain and one whole request (DDIM, CFG with a negative prompt, so the UNet
 runs at batch 2N) under ``torch.profiler``.  For each it prints one JSON line:
 host wall time (ending in a sync; the mean of 3 runs without the profiler, and
 the profiled run's), the summed device time of its kernels,
-their number, the device's idle share (1 - kernel time / wall), and the
-device time and kernel count by kernel family (``copy`` is Tensor.copy_:
-``.contiguous()`` and dtype casts).  Needs one CUDA card; imports no JAX.
+their number, the device's idle share (1 - kernel time / wall), the device
+time of the spatial cross-attention kernel, and the device time and kernel
+count by kernel family (``copy`` is Tensor.copy_: ``.contiguous()`` and
+dtype casts).  Needs one CUDA card; imports no JAX.
 """
 
 import argparse
@@ -32,7 +33,7 @@ sys.path.insert(0, str(ROOT))
 FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("gn_silu (ours)", ("gn_cluster", "gn_chunk_stats", "gn_chunk_apply")),
     ("flash (ours)", ("flash_bf16", "flash_f32")),
-    ("spatial_xattn (ours)", ("spatial_xattn_kernel",)),
+    ("spatial_xattn (ours)", ("spatial_xattn_tc", "spatial_xattn_f32")),
     ("conv (cuDNN)", ("conv", "implicit", "cudnn", "nhwc", "xmma_fprop", "sm90_xmma")),
     ("gemm", ("gemm", "cutlass", "sm90_", "ampere_", "cublas")),
     ("norm/softmax/reduce", ("norm", "softmax", "reduce", "welford")),
@@ -85,6 +86,7 @@ def profiled(name, fn, trace=None):
     rec = {"component": name, "wall_ms": wall, "wall_ms_profiled": wall_profiled * 1e3,
            "kernel_ms": kernels / 1e3, "kernels": launches,
            "device_idle_share": (1.0 - kernels / 1e3 / wall) if kernels else None,
+           "spatial_xattn_ms": by_family["spatial_xattn (ours)"] / 1e3,
            "by_family_ms": {k: v / 1e3 for k, v in sorted(by_family.items(),
                                                           key=lambda kv: -kv[1])},
            "by_family_kernels": dict(count_by_family),

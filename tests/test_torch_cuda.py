@@ -175,7 +175,32 @@ def test_flash_attention_all_keys_masked_but_one(card, dtype):
     _close(got, want, dtype)
 
 
-def _spatial_operands(dev, dtype, b, l, c, s, seed=0, cold=False):
+# live keys of each sample, by mask kind (a key is masked with bias -1e9)
+PROMPT_KEYS = (13, 12, 9, 9)   # chip_smoke.py's PROMPTS under the committed vocab
+
+
+def _live_keys(kind, b, s, dev):
+    """[B, S] bool, or None for no text bias."""
+    j = torch.arange(s, device=dev)[None, :]
+    if kind == "unmasked":
+        return None
+    if kind == "third":      # the last sample's prompt is a third of the text length
+        n = [s] * (b - 1) + [max(1, s // 3)]
+    elif kind == "prompt":   # prompt lengths 9-17 of 128
+        n = [(9, 12, 13, 17)[i % 4] for i in range(b)]
+    elif kind == "counts":   # live-key counts off the 16-key step, and past 128
+        n = [(1, 7, 17, 130)[i % 4] for i in range(b)]
+    elif kind == "none":     # the first sample has every key masked
+        n = [0] + [max(1, s // 3)] * (b - 1)
+    elif kind == "holes":    # holes in the middle, not only padding at the end
+        keep = (j % 3 != 1) & ((j < s // 4) | (j >= s // 2))
+        return keep.expand(b, s).clone()
+    else:
+        raise ValueError(kind)
+    return j < torch.tensor(n, device=dev)[:, None]
+
+
+def _spatial_operands(dev, dtype, b, l, c, s, seed=0, cold=False, mask="third"):
     xn = _randn((b, l, c), seed, dev, dtype)
     res = _randn((b, l, c), seed + 1, dev, dtype)
     k = _randn((b, s, c), seed + 2, dev)
@@ -183,37 +208,66 @@ def _spatial_operands(dev, dtype, b, l, c, s, seed=0, cold=False):
     wq = _randn((c, c), seed + 4, dev, scale=c ** -0.5 * (120.0 if cold else 1.0))
     wp = _randn((c, c), seed + 5, dev, scale=c ** -0.5)
     bq, bp = _randn((c,), seed + 6, dev, scale=0.1), _randn((c,), seed + 7, dev, scale=0.1)
-    mask = torch.ones(b, s, device=dev)
-    mask[-1, s // 3:] = 0
-    bias = torch.where(mask > 0, 0.0, -1e9).float()[:, None, None, :]
+    keep = _live_keys(mask, b, s, dev)
+    bias = None if keep is None else torch.where(keep, 0.0, -1e9).float()[:, None, None, :]
     return xn, res, k, v, wq, bq, wp, bp, bias
 
 
+# cold-head logits reach the hundreds.  fp32: rounding of the scores and
+# __expf's error grow with them.  bf16: kernel and plain version round q *
+# scale to bf16 at the same point, but sum q in other orders, so a q element
+# can land one bf16 step apart, which moves one head's score by about 0.25
+# and that pixel's output by up to about 0.1 (chip_smoke.py: COLD_TOL).
+COLD_TOL = {torch.float32: dict(rtol=2e-3, atol=2e-3),
+            torch.bfloat16: dict(rtol=2e-2, atol=1e-1)}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,hw,c,s,cold,compat", [
-    (4, 108, 64, 128, False, False),   # VAE 108^2 site
-    (4, 215, 32, 128, True, False),    # VAE 215^2 site, cold heads
-    (2, 21, 64, 12, True, True),       # compat_reshape
-    (2, 9, 8, 7, False, False),        # tiny config: head dim 1
-    (1, 5, 16, 256, False, True),      # most keys the kernel takes
+@pytest.mark.parametrize("b,hw,c,s,cold,compat,mask", [
+    (4, 108, 64, 128, False, False, "third"),    # VAE 108^2 site
+    (4, 215, 32, 128, True, False, "third"),     # VAE 215^2 site, cold heads
+    (4, 108, 64, 128, False, False, "prompt"),   # VAE 108^2 site, prompt masks
+    (4, 215, 32, 128, False, False, "prompt"),   # VAE 215^2 site, prompt masks
+    (4, 45, 32, 128, True, False, "prompt"),     # cold heads over few live keys
+    (2, 21, 64, 12, True, True, "third"),        # compat_reshape
+    (2, 9, 8, 7, False, False, "third"),         # tiny config: head dim 1
+    (1, 5, 16, 256, False, True, "third"),       # most keys the kernel takes
+    (2, 40, 32, 256, False, False, "unmasked"),  # 256 live keys: two softmax passes
+    (1, 9, 64, 256, True, False, "unmasked"),    # ... at C = 64: fewer warps fit
+    (4, 33, 16, 200, False, False, "counts"),    # 1, 7, 17 and 130 live keys
+    (3, 30, 32, 128, False, False, "none"),      # a sample with every key masked
+    (2, 30, 64, 128, False, False, "holes"),     # holes in the middle of the mask
+    (2, 30, 64, 128, False, False, "unmasked"),  # text_bias=None
+    (2, 17, 8, 40, False, True, "holes"),        # every width, compat_reshape
+    (2, 17, 16, 40, False, True, "holes"),
+    (2, 17, 32, 40, True, True, "holes"),
+    (2, 17, 64, 40, False, True, "holes"),
 ])
-def test_spatial_xattn_kernel(card, dtype, b, hw, c, s, cold, compat):
-    xn, res, k, v, wq, bq, wp, bp, bias = _spatial_operands(card, dtype, b, hw * hw, c,
-                                                            s, cold=cold)
+def test_spatial_xattn_kernel(card, dtype, b, hw, c, s, cold, compat, mask):
+    xn, res, k, v, wq, bq, wp, bp, bias = _spatial_operands(
+        card, dtype, b, hw * hw, c, s, cold=cold, mask=mask)
     got = spatial_xattn.fused_spatial_xattn(xn, res, k, v, wq, bq, wp, bp, num_heads=8,
                                             text_bias=bias, compat_reshape=compat)
     scale = (c // 8) ** -0.5
-    kh = spatial_xattn.split_heads(k, 8, compat).contiguous()
-    vh = spatial_xattn.split_heads(v, 8, compat).contiguous()
-    ref = spatial_xattn.spatial_xattn_plain(xn, res, kh, vh, wq, bq, wp, bp,
-                                            key_bias=bias.reshape(b, s), scale=scale)
+    kh = spatial_xattn.split_heads(k, 8, compat)
+    vh = spatial_xattn.split_heads(v, 8, compat)
+    ref = spatial_xattn.spatial_xattn_plain(
+        xn, res, kh, vh, wq, bq, wp, bp,
+        key_bias=None if bias is None else bias.reshape(b, s), scale=scale)
     assert got.dtype == dtype and torch.isfinite(got.float()).all()
-    if cold and dtype == torch.float32:
-        # cold-head logits reach the hundreds: fp32 rounding of the scores
-        # and __expf's error grow with them
-        torch.testing.assert_close(got, ref, rtol=2e-3, atol=2e-3)
-    else:
-        _close(got, ref, dtype)
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **(COLD_TOL if cold else TOL)[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spatial_xattn_repeat_calls_bit_equal(card, dtype):
+    operands = _spatial_operands(card, dtype, 4, 215 * 215, 32, 128, cold=True,
+                                 mask="prompt")
+    first = spatial_xattn.fused_spatial_xattn(*operands[:8], num_heads=8,
+                                              text_bias=operands[8])
+    for _ in range(3):   # no atomics, a fixed launch shape: the same bits
+        assert torch.equal(spatial_xattn.fused_spatial_xattn(
+            *operands[:8], num_heads=8, text_bias=operands[8]), first)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(card):

@@ -232,6 +232,87 @@ def test_fused_spatial_matches_pallas_interpret(spatial_setup, compat, masked, c
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=tol, atol=tol)
 
 
+def _bf16_np(a):
+    return np.asarray(jnp.asarray(a).astype(jnp.bfloat16).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("compat", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("cold", [False, True])
+def test_fused_spatial_bf16_matches_pallas_interpret(spatial_setup, compat, masked,
+                                                     cold):
+    """bf16 on both sides, with Wq and Wp cast to bf16 as
+    psg_tpu/nn/attention.py:170 casts them: the plain version rounds q *
+    scale, P and o where the TPU kernel rounds them."""
+    params, x, text, mask = spatial_setup
+    if cold:
+        params = _amplified(params)
+    jp = jax.tree_util.tree_map(jnp.asarray, params)
+    b, h, w, c = x.shape
+    bf = jnp.bfloat16
+    xn = jax_group_norm(jp["norm"], jnp.asarray(x), jax_largest_group_count(c),
+                        eps=1e-5).reshape(b, h * w, c).astype(bf)
+    res = jnp.asarray(x).reshape(b, h * w, c).astype(bf)
+    k = jax_linear(jp["k"], jnp.asarray(text))   # fp32, as the block gives them
+    v = jax_linear(jp["v"], jnp.asarray(text))
+    wq = jp["q"]["w"].reshape(c, c).astype(bf)
+    wp = jp["proj"]["w"].reshape(c, c).astype(bf)
+    jbias = jax_text_bias(jnp.asarray(mask)) if masked else None
+    ref = jax_fused_spatial(xn, res, k, v, wq, jp["q"]["b"], wp, jp["proj"]["b"],
+                            num_heads=HEADS, text_bias=jbias, compat_reshape=compat,
+                            interpret=True)
+    tbias = text_bias_from_mask(_t(mask)) if masked else None
+    got = fused_spatial_xattn(
+        _t(_bf16_np(xn)).bfloat16(), _t(_bf16_np(res)).bfloat16(),
+        _t(np.asarray(k)), _t(np.asarray(v)), _t(_bf16_np(wq)).bfloat16(),
+        _t(params["q"]["b"]), _t(_bf16_np(wp)).bfloat16(), _t(params["proj"]["b"]),
+        num_heads=HEADS, text_bias=tbias, compat_reshape=compat)
+    assert got.dtype == torch.bfloat16
+    # two bf16 steps of the output (2^-7 relative each); both sides sum in
+    # fp32 on the CPU, so their bf16 roundings of q * scale and P agree, and
+    # the cold heads need no looser bound here (the card's kernel sums q in
+    # another order: see tests/test_torch_cuda.py COLD_TOL)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("cold", [False, True])
+def test_spatial_masked_keys_are_exactly_zero_and_droppable(cold):
+    """The premise of the kernel's skipping of masked keys, in the plain
+    version at fp32: a key with bias -1e9 has probability exactly 0.0 (cold
+    heads included), so a mask with holes in the middle gives the output of
+    dropping those keys from K, V and the bias."""
+    from psg_tpu_torch.ops import spatial_xattn as sx
+
+    rng = np.random.RandomState(4)
+    b, l, c, s = 2, 50, 32, 40
+    xn, res = (_t(rng.randn(b, l, c).astype(np.float32)) for _ in range(2))
+    kh, vh = (_t(rng.randn(b, HEADS, s, c // HEADS).astype(np.float32))
+              for _ in range(2))
+    wq = _t((rng.randn(c, c) * c ** -0.5 * (120.0 if cold else 1.0)).astype(np.float32))
+    wp = _t((rng.randn(c, c) * c ** -0.5).astype(np.float32))
+    bq, bp = (_t((rng.randn(c) * 0.1).astype(np.float32)) for _ in range(2))
+    j = np.arange(s)
+    keep = np.stack([(j % 3 != 1) & ((j < 10) | (j >= 25)),   # holes in the middle
+                     (j >= 5) & (j < 30)])                      # holes at both ends
+    bias = _t(np.where(keep, 0.0, -1e9).astype(np.float32))
+    scale = (c // HEADS) ** -0.5
+    p = sx.spatial_probs_plain(xn, kh, wq, bq, key_bias=bias, scale=scale)
+    dead = torch.from_numpy(~keep)[:, None, None, :].expand_as(p)
+    assert torch.all(p[dead] == 0.0)
+    if cold:   # logits span hundreds within a row
+        assert (p.amax(-1) > 0.99).float().mean() > 0.5
+    got = sx.spatial_xattn_plain(xn, res, kh, vh, wq, bq, wp, bp, key_bias=bias,
+                                 scale=scale)
+    for i in range(b):
+        kk = torch.from_numpy(keep[i])
+        want = sx.spatial_xattn_plain(
+            xn[i:i + 1], res[i:i + 1], kh[i:i + 1, :, kk], vh[i:i + 1, :, kk], wq, bq,
+            wp, bp, key_bias=bias[i:i + 1, kk], scale=scale)
+        torch.testing.assert_close(got[i:i + 1], want, rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("compat", [False, True])
 def test_spatial_block_matches_xla_path(spatial_setup, compat):
     """nn.attention.spatial_cross_attention: the port's dispatch (C = 64 ->

@@ -28,19 +28,37 @@ prints one JSON line per phase:
                 ``host_bound`` marks a case whose eager call takes over 1.5x
                 its device time.
 3. ``e2e_card_vs_cpu``  the whole text -> sprite chain at a tiny config in
-                fp32, the same parameters and initial latent on the card
-                (kernels) and on the CPU (plain versions): image MAE <= 1e-3.
+                fp32, the same parameters and draws on the card (kernels) and
+                on the CPU (plain versions): DDIM and DPM-Solver++ from one
+                initial latent; the four DDPM-family samplers with their
+                per-step noises given; and the image+text path (a numpy image
+                encoded, reparameterized and lerped with given noise, then one
+                restart pass): image MAE <= 1e-3 each.
 4. ``serve_full_width``  config/train_config.yaml (bf16, BERT-base, UNet
                 320/640/1280/1280, full VAE, 215x215, text_len 128) with random
                 weights from the config's seed: generate_batch of 4 prompts
                 (DDIM 20 steps, CFG 2.0 with a negative prompt) and
                 generate_from_text (DPM-Solver++ 10 steps) twice with one seed.
-                Images must be finite and of the right shape, the seed must
-                repeat its image, and every kernel's launch count over these
-                requests must equal the count the model's structure predicts.
+5. ``serve_paths_full_width``  the same generator, and a sprite corpus of 8
+                made from a seed in a temporary directory (the config's CSV
+                and image paths point there): generate_from_image_and_text on
+                a 215x215 sprite of phase 4 (twice with one seed, once with
+                another), generate_from_text with one restart pass,
+                generate_from_text_retrieval, generate_batch of 4 prompts
+                seeded by retrieval, one request each with the renoise, ddpm,
+                fast and x0 samplers (7 steps, which the fast and x0 tables
+                turn into 8 UNet evaluations), and one request from a second
+                generator whose CFG negative is the corpus's mean caption.
+In phases 4 and 5 images must be finite and of the right shape, a seed must
+repeat its image, and every request's kernel launches must equal the count
+the model's structure predicts (``predicted_launches``); each phase's counts
+are set to 0 just before its requests and read just after them.
 
-Then the card's name and power limit, the ``kernels`` line (each kernel at
-its heaviest main-path shape, with its launches in phase 4), and last
+Phase 2 holds GroupNorm+SiLU at the decoder's and the UNet's sites and, at
+batch 1 and 4, at the VAE encoder's (107^2x32 with one channel a group,
+53^2x64, 27^2x128).  Then the card's name and power limit, the ``kernels``
+line (each kernel at its heaviest main-path shape, with its launches summed
+over phases 4 and 5), and last
 ``{"ok": true, "device": {...}}``.  ``--json PATH`` also writes every
 phase's record to PATH.
 """
@@ -52,6 +70,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -385,6 +404,9 @@ def main_path_cases():
                          (108, 128, 32), (108, 64, 32), (215, 64, 32), (215, 32, 32),
                          (215, 32, 8)):
             cases.append(gn_case(f"vae {hw}^2x{c} G{g}", 4, hw, c, g, dtype))
+        for hw, c in ((107, 32), (53, 64), (27, 128)):   # the VAE encoder
+            for b in (1, 4):
+                cases.append(gn_case(f"vae enc {hw}^2x{c} G32 b{b}", b, hw, c, 32, dtype))
         for name, shape in (
                 ("bert self L128 hd64", (4, 12, 128, 128, 64, True)),
                 ("bert self L128 hd64 b1", (1, 12, 128, 128, 64, True)),
@@ -458,27 +480,44 @@ def tiny_config():
     return cfg
 
 
-def predicted_launches(gen, n_unet_evals):
+def unet_evals(gen, sampler, steps):
+    """UNet evaluations of one chain: the sampler's own timestep table."""
+    from psg_tpu_torch.diffusion import sampling
+
+    T = gen.schedule.num_timesteps
+    if sampler in ("ddim", "dpmpp"):
+        return min(steps, T)
+    if sampler == "fast":
+        return len(sampling.fast_timesteps(T, sampling.fast_stride(T, steps)))
+    return len({"ddpm": sampling.ddpm_timesteps, "x0": sampling.x0_timesteps,
+                "renoise": sampling.renoise_timesteps}[sampler](T, steps))
+
+
+def predicted_launches(gen, n_unet_evals, *, text_encodes=1, encodes=0, decodes=1):
     """Kernel launches of one request, from the model's structure: per UNet
     evaluation two GN+SiLU per ResBlock plus the final norm, and two
-    attention calls per attention block; per text encode one attention per
-    BERT layer; per decode two GN+SiLU per ResNet block plus the final norm,
-    and one spatial attention per decoder block (the fused kernel at the
-    widths it is built for, else the flash kernel)."""
-    from psg_tpu_torch.models.vae import _DEC_BLOCKS, width_scale
+    attention calls per attention block; per text encode (each chain's
+    prompts, the retrieval index in batches of 64, each retrieval query) one
+    attention per BERT layer; per VAE encode two GN+SiLU per ResNet block
+    (14); per decode two GN+SiLU per ResNet block plus the final norm, and
+    one spatial attention per decoder block (the fused kernel at the widths
+    it is built for, else the flash kernel)."""
+    from psg_tpu_torch.models.vae import _DEC_BLOCKS, _ENC_DOWN, _ENC_RES, width_scale
     from psg_tpu_torch.ops.spatial_xattn import CHANNELS
 
     spec = gen.spec
     nlvl, bpl = len(spec.channels), spec.blocks_per_level
     unet_gn = 2 * (2 * nlvl * bpl + 1) + 1
     unet_attn = 2 * (2 * bpl * sum(spec.attention_levels) + 1)
+    enc_gn = 2 * (len(_ENC_DOWN) + len(_ENC_RES))
     widths = [width_scale(cout, gen.cfg.model.vae_width_scale)
               for _cin, cout, _up in _DEC_BLOCKS]
     fused = sum(w in CHANNELS for w in widths)
-    return {"group_norm_silu": n_unet_evals * unet_gn + 4 * len(_DEC_BLOCKS) + 1,
-            "flash_attention": (gen.bert_cfg.num_layers + n_unet_evals * unet_attn
-                                + len(widths) - fused),
-            "spatial_xattn": fused}
+    return {"group_norm_silu": (n_unet_evals * unet_gn + encodes * enc_gn
+                                + decodes * (4 * len(_DEC_BLOCKS) + 1)),
+            "flash_attention": (text_encodes * gen.bert_cfg.num_layers
+                                + n_unet_evals * unet_attn + decodes * (len(widths) - fused)),
+            "spatial_xattn": decodes * fused}
 
 
 def phase_e2e_card_vs_cpu():
@@ -495,34 +534,67 @@ def phase_e2e_card_vs_cpu():
     ids, mask = torch.from_numpy(ids).long(), torch.from_numpy(mask).long()
     latent = torch.from_numpy(
         np.random.RandomState(0).randn(2, 9, 9, cfg.model.latent_dim).astype(np.float32))
+    rng = np.random.RandomState(1)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.randn(*shape).astype(np.float32))
+
+    lat = tuple(latent.shape[1:])
+    noises = {s: randn(unet_evals(cpu, s, 4), 2, *lat) for s in ("ddpm", "fast", "x0",
+                                                                 "renoise")}
+    image = torch.from_numpy(rng.uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32))
+    init_draws, restart_draws = [randn(2, *lat), randn(2, *lat)], [randn(2, *lat),
+                                                                   randn(2, *lat)]
+
+    def chain(gen, name, dev):
+        """One tiny chain on ``gen``, its inputs and draws moved by ``dev``:
+        a sampler from the initial latent (the DDPM family with its per-step
+        noises), or the image+text path with one restart pass."""
+        i, m, x = dev(ids), dev(mask), dev(latent)
+        if name in ("ddim", "dpmpp"):
+            return gen._generate_impl(gen.params, None, i, m, x, steps=4, num=2,
+                                      sampler=name)
+        if name in noises:
+            return gen._generate_impl(gen.params, None, i, m, x, steps=4, num=2,
+                                      sampler=name, noises=dev(noises[name]))
+        return gen._serve(i, m, None, steps=4, num=2, sampler="ddim",
+                          init_images=dev(image), init_strength=0.7, restarts=1,
+                          restart_strength=0.9,
+                          draws={"init": [dev(t) for t in init_draws],
+                                 "restarts": [[dev(t) for t in restart_draws]]})
+
     out = {}
-    for sampler in ("ddim", "dpmpp"):
-        ref = cpu._generate_impl(cpu.params, None, ids, mask, latent, steps=4, num=2,
-                                 sampler=sampler)
+    for name in ("ddim", "dpmpp", *noises, "image+text, 1 restart"):
+        ref = chain(cpu, name, lambda t: t)
         ops.reset_launch_counts()
-        got = card._generate_impl(card.params, None, ids.cuda(), mask.cuda(),
-                                  latent.cuda(), steps=4, num=2, sampler=sampler)
-        got = got.float().cpu()
+        got = chain(card, name, lambda t: t.cuda()).float().cpu()
         counts = ops.launch_counts()
         mae = (got - ref).abs().mean().item()
-        out[sampler] = {"image_mae": mae, "max_abs": (got - ref).abs().max().item(),
-                        "launches": counts}
+        out[name] = {"image_mae": mae, "max_abs": (got - ref).abs().max().item(),
+                     "launches": counts}
         if got.shape != (2, 64, 64, 3) or not torch.isfinite(got).all():
-            fail(f"tiny e2e {sampler}: bad output {tuple(got.shape)}")
+            fail(f"tiny e2e {name}: bad output {tuple(got.shape)}")
         if not mae <= E2E_MAE:
-            fail(f"tiny e2e {sampler}: card vs CPU image MAE {mae} > {E2E_MAE}")
+            fail(f"tiny e2e {name}: card vs CPU image MAE {mae} > {E2E_MAE}")
         if min(counts.values()) == 0:
-            fail(f"tiny e2e {sampler}: a kernel was not launched: {counts}")
+            fail(f"tiny e2e {name}: a kernel was not launched: {counts}")
     return {"bound": E2E_MAE, **out}
 
 
-def phase_serve_full_width():
-    from psg_tpu_torch import ops
+def full_width_config(corpus):
+    """config/train_config.yaml with the data paths on ``corpus``."""
     from psg_tpu_torch.core.config import load_config
+
+    csv, image_dir = corpus
+    return load_config(CONFIG, [f"data.csv_path={csv}", f"data.image_dir={image_dir}"])
+
+
+def phase_serve_full_width(corpus):
+    from psg_tpu_torch import ops
     from psg_tpu_torch.serve.generator import PokemonGenerator
     from psg_tpu_torch.text.tokenizer import WordPieceTokenizer
 
-    cfg = load_config(CONFIG)
+    cfg = full_width_config(corpus)
     if cfg.model.compute_dtype != "bfloat16" or cfg.data.image_size != 215:
         fail(f"{CONFIG.name} is not the full-width bf16 configuration")
     t0 = time.perf_counter()
@@ -579,10 +651,114 @@ def phase_serve_full_width():
         fail("generate_from_text: the same seed gave a different image")
     if launches != expected or min(launches.values()) == 0:
         fail(f"main path launches {launches} != predicted {expected}")
-    return {"params": n_params, "init_s": init_s, "requests": requests,
-            "launches": launches, "image_std": float(imgs.std()),
-            "resident_gb": resident / 1e9,
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    record = {"params": n_params, "init_s": init_s, "requests": requests,
+              "launches": launches, "image_std": float(imgs.std()),
+              "resident_gb": resident / 1e9,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return record, gen, imgs
+
+
+def phase_serve_paths_full_width(gen, corpus, sprites):
+    """The rest of serving at full width: image+text, restarts, retrieval
+    seeding (single and batched), the four DDPM-family samplers and the
+    ``mean`` negative, each request's launches held to its prediction."""
+    from psg_tpu_torch import ops
+    from psg_tpu_torch.data.dataset import read_description_csv
+    from psg_tpu_torch.serve.generator import PokemonGenerator
+    from psg_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from psg_tpu_torch.utils.images import tensor_to_pil
+
+    t0 = time.perf_counter()
+    mean_gen = PokemonGenerator(full_width_config(corpus),
+                                tokenizer=WordPieceTokenizer.from_vocab_file(VOCAB),
+                                sampler="dpmpp", guidance_scale=2.0, negative="mean",
+                                device="cuda")
+    mean_init_s = time.perf_counter() - t0
+    size = gen.cfg.data.image_size
+    sprite = tensor_to_pil(sprites[0])
+    if sprite.size != (size, size):
+        fail(f"phase 4's sprite is {sprite.size}, not {size}x{size}")
+    # warm-up of the encoder's convolutions (cuDNN picks its kernels)
+    for b in (1, 4):
+        gen._encode_impl(gen.params, torch.Generator(device=gen.device).manual_seed(0),
+                         torch.zeros(b, size, size, 3, device=gen.device))
+    gen.generate_from_image_and_text(sprite, PROMPTS[2], 2, 0.7, seed=100)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the serving generator builds its retrieval index inside the first
+    # retrieval request: one text encode per 64 captions
+    n_corpus = len(read_description_csv(corpus[0]))
+    index_encodes = math.ceil(n_corpus / 64)
+    steps = 10
+    requests = []
+    expected = {k: 0 for k in ops.launch_counts()}
+    ops.reset_launch_counts()   # this path's counted run starts here
+
+    def serve(kind, fn, n_unet_evals, **structure):
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        got = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        want = predicted_launches(gen, n_unet_evals, **structure)
+        for k in expected:
+            expected[k] += want[k]
+        requests.append({"request": kind, "wall_s": wall, "unet_evals": n_unet_evals,
+                         "launches": got, "predicted": want})
+        if got != want:
+            fail(f"{kind}: kernel launches {got} != predicted {want}")
+        return np.asarray(result, np.float32)
+
+    evals = unet_evals(gen, gen.sampler_name, steps)
+    it = [serve(f"generate_from_image_and_text dpmpp {steps} steps cfg, seed {sd}",
+                lambda sd=sd: gen.generate_from_image_and_text(sprite, PROMPTS[0], steps,
+                                                               0.7, seed=sd),
+                evals, encodes=1) for sd in (5, 5, 6)]
+    restart = serve(f"generate_from_text dpmpp {steps} steps cfg, 1 restart",
+                    lambda: gen.generate_from_text(PROMPTS[1], steps, seed=7, restarts=1),
+                    2 * evals, text_encodes=2, encodes=1, decodes=2)
+    retr = serve(f"generate_from_text_retrieval dpmpp {steps} steps cfg "
+                 f"(index of {n_corpus} captions built)",
+                 lambda: gen.generate_from_text_retrieval(PROMPTS[2], steps, seed=8,
+                                                          strength=0.85),
+                 evals, text_encodes=index_encodes + 2, encodes=1)
+    batch = serve(f"generate_batch n=4 ddim {steps} steps cfg init=retrieval",
+                  lambda: gen.generate_batch(PROMPTS, steps, seed=9, sampler="ddim",
+                                             init="retrieval"),
+                  unet_evals(gen, "ddim", steps), text_encodes=len(PROMPTS) + 1, encodes=1)
+    by_sampler = {}
+    for sampler in ("renoise", "ddpm", "fast", "x0"):
+        by_sampler[sampler] = serve(
+            f"generate_batch n=1 {sampler} 7 steps (unguided)",
+            lambda sampler=sampler: gen.generate_batch(PROMPTS[3:], 7, seed=10,
+                                                       sampler=sampler),
+            unet_evals(gen, sampler, 7))
+    mean = serve(f"generate_from_text dpmpp {steps} steps cfg, mean negative",
+                 lambda: mean_gen.generate_from_text(PROMPTS[1], steps, seed=7),
+                 evals)
+    launches = ops.launch_counts()   # ... and ends here
+
+    one = (size, size, 3)
+    for name, img, shape in [("image+text", it[0], one), ("restart", restart, one),
+                             ("retrieval", retr, one),
+                             ("batch retrieval", batch, (len(PROMPTS), *one)),
+                             ("mean negative", mean, one)] + [
+            (s, img, (1, *one)) for s, img in by_sampler.items()]:
+        if img.shape != shape or not np.isfinite(img).all():
+            fail(f"{name}: bad image {img.shape}")
+    if not np.array_equal(it[0], it[1]) or np.array_equal(it[0], it[2]):
+        fail("generate_from_image_and_text: a seed did not repeat its image, or "
+             "another seed gave the same one")
+    if launches != expected or min(launches.values()) == 0:
+        fail(f"serve paths launches {launches} != predicted {expected}")
+    record = {"mean_negative_init_s": mean_init_s, "corpus": n_corpus,
+              "requests": requests, "launches": launches,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del mean_gen
+    torch.cuda.empty_cache()
+    return record
 
 
 def _leaves(tree):
@@ -668,9 +844,19 @@ def main(argv=None):
     t = time.perf_counter()
     emit("e2e_card_vs_cpu", {**phase_e2e_card_vs_cpu(),
                              "seconds": time.perf_counter() - t})
-    t = time.perf_counter()
-    serve = phase_serve_full_width()
-    emit("serve_full_width", {"card": card, **serve, "seconds": time.perf_counter() - t})
+    from psg_tpu_torch.data.synthetic import write_sprite_corpus
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
+        corpus = write_sprite_corpus(tmp, n=8, seed=0, size=215)
+        t = time.perf_counter()
+        serve, gen, sprites = phase_serve_full_width(corpus)
+        emit("serve_full_width", {"card": card, **serve,
+                                  "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        paths = phase_serve_paths_full_width(gen, corpus, sprites)
+        emit("serve_paths_full_width", {"card": card, **paths,
+                                        "seconds": time.perf_counter() - t})
+        del gen
 
     by_name = {(r["kernel"], r["name"], r["dtype"]): r for r in results}
     kernels = []
@@ -678,7 +864,7 @@ def main(argv=None):
         r = by_name[(kname, case, "bfloat16")]
         kernels.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaces, "shape": case, "dtype": "bfloat16",
-                        "launches": serve["launches"][kname],
+                        "launches": serve["launches"][kname] + paths["launches"][kname],
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -9,8 +9,8 @@
   (text), ResNet] blocks with bilinear upsampling 27 -> 54 -> 108 -> 215,
   channels 512->512->256->128->64->32, final GroupNorm(8)+SiLU+conv+tanh.
 
-The serving path runs the decoder; the encoder is here so the parameter
-bridge and the checkpoint reader cover the whole ``vae`` subtree.
+Every request runs the decoder; image+text requests, retrieval seeding and
+restart passes also run the encoder and ``reparameterize``.
 """
 
 from __future__ import annotations
@@ -117,6 +117,17 @@ def vae_encoder_apply(params, images, *, dtype=None):
     return mu, logvar
 
 
+def reparameterize(generator, mu, logvar, *, noise=None):
+    """latent = mu + eps * exp(0.5 * logvar), in fp32, returned in mu's dtype.
+
+    eps is drawn in fp32 from ``generator`` (a ``torch.Generator`` on mu's
+    device), unless ``noise`` (mu's shape) gives it."""
+    std = torch.exp(0.5 * logvar.float())
+    if noise is None:
+        noise = torch.randn(mu.shape, generator=generator, device=mu.device)
+    return (mu.float() + noise.float() * std).to(mu.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Decoder
 # ---------------------------------------------------------------------------
@@ -175,6 +186,12 @@ def vae_init(gen, latent_dim: int = 8, text_dim: int = 768, width: float = 1.0):
         "encoder": vae_encoder_init(gen, latent_dim, width),
         "decoder": vae_decoder_init(gen, latent_dim, text_dim, width),
     }
+
+
+def vae_encode(params, generator, images, *, dtype=None, noise=None):
+    """Returns (latent, mu, logvar) like the reference's ``PokemonVAE.encode``."""
+    mu, logvar = vae_encoder_apply(params["encoder"], images, dtype=dtype)
+    return reparameterize(generator, mu, logvar, noise=noise), mu, logvar
 
 
 def vae_decode(params, latent, text_emb, *, text_bias=None, dtype=None,

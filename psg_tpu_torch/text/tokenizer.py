@@ -1,9 +1,9 @@
 """Offline BERT-style WordPiece tokenizer (numpy only; same algorithm and ids
-as ``psg_tpu/text/tokenizer.py``, whose serving side this copies).
+as ``psg_tpu/text/tokenizer.py``, of which this is a copy).
 
-It loads a ``vocab.txt`` (standard BERT vocab format, one token per line)
-and turns text into fixed-length ids + mask.  Building a vocabulary from a
-training corpus belongs to the data slice and is not ported yet.
+It loads a ``vocab.txt`` (standard BERT vocab format, one token per line) or
+builds a deterministic vocabulary from a caption corpus
+(``build_vocab_from_corpus``), and turns text into fixed-length ids + mask.
 
 The basic-tokenizer (lowercase, accent strip, punctuation split) and the
 greedy longest-match WordPiece algorithm follow the published BERT
@@ -13,8 +13,9 @@ tokenization spec.
 from __future__ import annotations
 
 import unicodedata
+from collections import Counter
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, Iterable, List, Sequence, Tuple
 
 import numpy as np
 
@@ -56,6 +57,34 @@ def basic_tokenize(text: str, lower: bool = True) -> List[str]:
     return out
 
 
+def build_vocab_from_corpus(texts: Iterable[str], max_size: int = 30000,
+                            min_freq: int = 1) -> List[str]:
+    """Deterministic offline vocab: specials + all seen characters (with ##
+    continuations) as the OOV fallback + corpus words by frequency."""
+    word_counts: Counter = Counter()
+    chars: set = set()
+    for t in texts:
+        for w in basic_tokenize(t):
+            word_counts[w] += 1
+            chars.update(w)
+    vocab: List[str] = list(SPECIALS)
+    seen = set(vocab)
+    for c in sorted(chars):
+        for tok in (c, f"##{c}"):
+            if tok not in seen:
+                vocab.append(tok)
+                seen.add(tok)
+    # frequency then lexicographic for determinism
+    for w, n in sorted(word_counts.items(), key=lambda kv: (-kv[1], kv[0])):
+        if n < min_freq or w in seen:
+            continue
+        vocab.append(w)
+        seen.add(w)
+        if len(vocab) >= max_size:
+            break
+    return vocab
+
+
 class WordPieceTokenizer:
     def __init__(self, vocab: Sequence[str], lower: bool = True,
                  max_chars_per_word: int = 100):
@@ -77,6 +106,13 @@ class WordPieceTokenizer:
     def from_vocab_file(cls, path) -> "WordPieceTokenizer":
         vocab = Path(path).read_text(encoding="utf-8").splitlines()
         return cls([v for v in vocab if v])
+
+    @classmethod
+    def from_corpus(cls, texts: Iterable[str], max_size: int = 30000) -> "WordPieceTokenizer":
+        return cls(build_vocab_from_corpus(texts, max_size=max_size))
+
+    def save_vocab(self, path) -> None:
+        Path(path).write_text("\n".join(self.vocab) + "\n", encoding="utf-8")
 
     @property
     def vocab_size(self) -> int:
@@ -129,3 +165,15 @@ class WordPieceTokenizer:
         for i, t in enumerate(texts):
             ids[i], mask[i] = self.encode(t, max_len)
         return ids, mask
+
+    def decode(self, ids: Sequence[int]) -> str:
+        toks = [self.vocab[int(i)] for i in ids]
+        text = ""
+        for t in toks:
+            if t in (PAD, CLS, SEP):
+                continue
+            if t.startswith("##"):
+                text += t[2:]
+            else:
+                text += (" " if text else "") + t
+        return text

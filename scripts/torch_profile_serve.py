@@ -5,9 +5,13 @@ the card.
     python3 scripts/torch_profile_serve.py [--batch 4] [--steps 20] [--trace PATH]
 
 Builds the full-width generator (config/train_config.yaml, bf16, random
-weights from the config's seed), warms it up, then runs each component of the
-chain and one whole request (DDIM, CFG with a negative prompt, so the UNet
-runs at batch 2N) under ``torch.profiler``.  For each it prints one JSON line:
+weights from the config's seed), warms it up, then runs under
+``torch.profiler`` each component of the chain (text encode, one UNet eval,
+VAE decode, and the VAE encode with ``reparameterize`` at batch 1 and 4),
+one whole batch request (DDIM, CFG with a negative prompt, so the UNet runs
+at batch 2N), and three batch-1 requests at the same steps: text -> sprite,
+image+text -> sprite (a 215x215 sprite of the batch request, noise strength
+0.7), and one restart pass (encode the draft, lerp at 0.9, the chain).  For each it prints one JSON line:
 host wall time (ending in a sync; the mean of 3 runs without the profiler, and
 the profiled run's), the summed device time of its kernels,
 their number, the device's idle share (1 - kernel time / wall), the device
@@ -112,6 +116,7 @@ def main():
     from psg_tpu_torch.ops import cuda_build
     from psg_tpu_torch.serve.generator import PokemonGenerator
     from psg_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from psg_tpu_torch.utils.images import pil_to_array, tensor_to_pil
 
     cuda_build.build_all(ops.KERNELS)
     cfg = load_config(ROOT / "config" / "train_config.yaml")
@@ -136,6 +141,10 @@ def main():
                         device="cuda")
         t = torch.full((2 * n,), 500, device="cuda", dtype=torch.int32)
         lat = x[:n]
+        sprite = tensor_to_pil(gen.generate_batch(prompts[:1], 2, seed=0)[0])
+        img1 = torch.from_numpy(pil_to_array(sprite, cfg.data.image_size)[None]).cuda()
+        img4 = img1.repeat(4, 1, 1, 1)
+        rng = torch.Generator(device="cuda").manual_seed(0)
         components = {
             "text_encode": lambda: text_encoder_apply(p["text"], ids, mask,
                                                       gen.bert_cfg, dtype=dt),
@@ -144,15 +153,27 @@ def main():
             "vae_decode": lambda: vae_decode(p["vae"], lat, emb,
                                              text_bias=text_bias_from_mask(mask),
                                              image_size=cfg.data.image_size, dtype=dt),
+            "vae_encode + reparameterize (batch 1)": lambda: gen._encode_impl(p, rng, img1),
+            "vae_encode + reparameterize (batch 4)": lambda: gen._encode_impl(p, rng, img4),
         }
         for fn in components.values():  # warm-up
             fn()
         gen.generate_batch(prompts, num_inference_steps=2, seed=0)
+        gen.generate_from_image_and_text(sprite, prompts[0], 2, 0.7, seed=0)
         for name, fn in components.items():
             profiled(name, fn)
     profiled(f"request: generate_batch n={n} ddim {args.steps} steps cfg",
              lambda: gen.generate_batch(prompts, num_inference_steps=args.steps, seed=1),
              trace=args.trace)
+    profiled(f"request: generate_from_text n=1 ddim {args.steps} steps cfg",
+             lambda: gen.generate_from_text(prompts[0], args.steps, seed=2))
+    profiled(f"request: generate_from_image_and_text n=1 ddim {args.steps} steps cfg",
+             lambda: gen.generate_from_image_and_text(sprite, prompts[0], args.steps, 0.7,
+                                                      seed=3))
+    ids1, mask1 = gen._encode_ids(prompts[:1])
+    profiled(f"restart pass n=1 ddim {args.steps} steps cfg",
+             lambda: gen._restart_passes(img1, ids1, mask1, rng, steps=args.steps, num=1,
+                                         sampler="ddim", restarts=1, strength=0.9))
     print(smi, flush=True)
 
 

@@ -53,6 +53,12 @@ def _close(got, ref, dtype):
     (4, 46225, 32, 8, 0.0),     # VAE final norm
     (2, 81, 16, 16, 1000.0),    # large mean: two-pass statistics
     (1, 5, 24, 8, 0.0),         # fewer rows than one chunk
+    # the VAE encoder, batch 1 (image+text, retrieval) and 4 (batched
+    # retrieval, restarts); 107^2 x 32 has one channel a group and takes the
+    # cluster path in bf16 (732 KB a sample), the split path in fp32
+    (1, 11449, 32, 32, 0.3), (4, 11449, 32, 32, 0.0),
+    (1, 2809, 64, 32, 0.3), (4, 2809, 64, 32, 0.0),
+    (1, 729, 128, 32, 0.3), (4, 729, 128, 32, 0.0),
 ])
 def test_group_norm_silu_kernel(card, dtype, b, s, c, g, shift):
     x = _randn((b, s, c), 0, card, dtype, scale=2.0, shift=shift)

@@ -36,9 +36,22 @@ def _imported_roots(path: Path):
 
 
 def test_port_modules_are_all_found():
-    assert "psg_tpu_torch.serve.generator" in MODULES
-    assert "psg_tpu_torch.ops.spatial_xattn" in MODULES
-    assert len(MODULES) >= 30
+    for name in ("serve.generator", "serve.app", "serve.hub", "data.dataset",
+                 "data.synthetic", "eval.metrics", "ops.spatial_xattn"):
+        assert f"psg_tpu_torch.{name}" in MODULES, name
+    assert len(MODULES) >= 37
+
+
+def test_serving_front_end_imports_no_optional_package():
+    """gradio and huggingface_hub are imported only when the UI launches or
+    the Hub is asked."""
+    probe = ("import sys, psg_tpu_torch.serve.app, psg_tpu_torch.data; "
+             "print([m for m in ('gradio', 'huggingface_hub', 'psg_tpu_torch.data.dataset')"
+             " if m in sys.modules])")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]"
 
 
 def test_importing_the_port_loads_no_jax_and_no_psg_tpu():

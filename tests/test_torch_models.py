@@ -189,6 +189,40 @@ def test_vae_encoder_matches(vae_params):
     np.testing.assert_allclose(lv.numpy(), np.asarray(lv_r), rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_reparameterize_matches(dtype):
+    """std and eps in fp32, the result in mu's dtype; the port takes JAX's
+    eps as ``noise``."""
+    rng = np.random.RandomState(7)
+    mu = rng.randn(2, 9, 9, 8).astype(np.float32)
+    logvar = rng.uniform(-4, 2, (2, 9, 9, 8)).astype(np.float32)
+    key = jax.random.PRNGKey(5)
+    eps = np.asarray(jax.random.normal(key, mu.shape, jnp.float32))
+    ref = jvae.reparameterize(key, jnp.asarray(mu, dtype), jnp.asarray(logvar, dtype))
+    tdt = torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32
+    got = tvae.reparameterize(None, _t(mu).to(tdt), _t(logvar).to(tdt), noise=_t(eps))
+    assert got.dtype == tdt
+    ref = np.asarray(ref, np.float32)
+    if tdt == torch.float32:
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)
+    else:   # exp may differ by an fp32 ulp, which can move one bf16 rounding
+        np.testing.assert_allclose(got.float().numpy(), ref, rtol=2 ** -7, atol=0)
+    seeded = [tvae.reparameterize(torch.Generator().manual_seed(s), _t(mu), _t(logvar))
+              for s in (1, 1, 2)]
+    assert torch.equal(seeded[0], seeded[1]) and not torch.equal(seeded[0], seeded[2])
+
+
+def test_vae_encode_matches(vae_params):
+    images = np.random.RandomState(8).uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(9)
+    lat_r, mu_r, lv_r = jvae.vae_encode(vae_params, key, jnp.asarray(images))
+    eps = np.asarray(jax.random.normal(key, mu_r.shape, jnp.float32))
+    lat, mu, lv = tvae.vae_encode(_port(vae_params), None, _t(images), noise=_t(eps))
+    for got, ref in ((lat, lat_r), (mu, mu_r), (lv, lv_r)):
+        assert tuple(got.shape) == ref.shape == (2, 9, 9, 8)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4, atol=1e-5)
+
+
 def test_width_scale_and_latent_size_match():
     for image in (64, 215, 128):
         assert tvae.latent_size_for(image) == jvae.latent_size_for(image)

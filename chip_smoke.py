@@ -49,7 +49,24 @@ prints one JSON line per phase:
                 fast and x0 samplers (7 steps, which the fast and x0 tables
                 turn into 8 UNet evaluations), and one request from a second
                 generator whose CFG negative is the corpus's mean caption.
-In phases 4 and 5 images must be finite and of the right shape, a seed must
+6. ``train``   stage-2 training.  (a) GN+SiLU and flash attention through
+                their autograd Functions (kernel forward, the plain version's
+                autograd backward) against plain autograd at the UNet's
+                training shapes at batch 32, bf16 and fp32.  (b) A tiny trainer
+                on the card against one on the CPU (fp32, TF32 off), the same
+                parameters, batches and draws: the first step's loss and
+                gradients, the parameters and EMA after 3 steps.  (c)
+                config/train_config.yaml at full width (batch 32) on 128
+                sprites made from a seed, with the native augmentation engine
+                (it fails if that did not build): the trainer's train_epoch
+                (3 steps), validate, generate_samples (DDIM 10) and
+                save_checkpoint_fast (the light bf16 best); then the hub
+                resolves that checkpoint and the serving generator serves one
+                DPM-10 request from it.  It reports the step wall after the
+                first step, samples/s, peak memory, the losses and the
+                launches of each part against ``predicted_train_launches``
+                (forward launches only: the backward launches no kernel).
+In phases 4-6 images must be finite and of the right shape, a seed must
 repeat its image, and every request's kernel launches must equal the count
 the model's structure predicts (``predicted_launches``); each phase's counts
 are set to 0 just before its requests and read just after them.
@@ -67,6 +84,7 @@ import argparse
 import functools
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -761,6 +779,309 @@ def phase_serve_paths_full_width(gen, corpus, sprites):
     return record
 
 
+# ---------------------------------------------------------------------------
+# phase 6: stage-2 training
+# ---------------------------------------------------------------------------
+
+GRAD_GN = ((27, 320), (27, 640), (14, 1280), (7, 2560), (4, 2560))
+GRAD_FLASH = (("unet 14^2 self hd160", (32, 4, 196, 196, 160, False)),
+              ("unet 14^2 cross hd160", (32, 4, 196, 128, 160, True)),
+              ("unet 7^2 self hd320", (32, 4, 49, 49, 320, False)),
+              ("unet 4^2 cross hd320", (32, 4, 16, 128, 320, True)))
+# card against CPU on the tiny config (fp32, TF32 off), same params and draws.
+# The gradients' bound is per leaf, 1e-3 * max|g| + 1e-6 (cuDNN and CPU
+# convolutions sum in other orders); params after 3 AdamW steps at lr 3e-4
+# within 1e-4, a third of one step's size.
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL, TRAIN_PARAM_ATOL = 1e-4, 1e-3, 1e-4
+FULL_STEPS = 3          # train steps of the full-width epoch: 128 sprites, batch 32
+
+
+def _grad_case(fn, plain, inputs, gy, dtype):
+    """max |kernel - plain| over the output and every input's gradient,
+    through the autograd Function (kernel forward) and through autograd of
+    the plain version."""
+    def run(f):
+        xs = [t.detach().clone().requires_grad_(True) for t in inputs]
+        out = f(*xs)
+        out.backward(gy)
+        return [out.detach()] + [t.grad for t in xs]
+
+    got, ref = run(fn), run(plain)
+    torch.cuda.synchronize()
+    err = max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
+    ok = all(torch.isfinite(g.float()).all() and torch.allclose(g.float(), r.float(),
+                                                                **TOL[dtype])
+             for g, r in zip(got, ref))
+    return {"max_abs_err": err, **TOL[dtype], "ok": bool(ok)}
+
+
+def phase_train_gradients():
+    """(a) GN+SiLU and flash attention through their autograd Functions on
+    the kernels against autograd of the plain versions, at the UNet's
+    training shapes at batch 32."""
+    from psg_tpu_torch import ops
+    from psg_tpu_torch.ops import flash_attention, fused_norm
+
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        for hw, c in GRAD_GN:
+            x = _randn((32, hw * hw, c), 0, dtype, scale=2.0, shift=0.3)
+            sc, bi = _randn((c,), 1, scale=0.3, shift=1.0), _randn((c,), 2, scale=0.1)
+            rec = _grad_case(
+                lambda x, s, b: ops.group_norm_silu({"scale": s, "bias": b}, x, 32),
+                lambda x, s, b: fused_norm.group_norm_silu_plain({"scale": s, "bias": b},
+                                                                 x, 32),
+                (x, sc, bi), _randn(x.shape, 3, dtype), dtype)
+            cases.append({"kernel": "group_norm_silu", "name": f"unet {hw}^2x{c} b32",
+                          "dtype": name, **rec})
+        for case, (b, h, lq, lk, d, masked) in GRAD_FLASH:
+            q, k, v = (_randn((b, h, n, d), i, dtype) for i, n in enumerate((lq, lk, lk)))
+            bias = None
+            if masked:
+                keep = torch.ones(b, lk, device=q.device, dtype=torch.bool)
+                keep[-1, lk // 3:] = False
+                bias = torch.where(keep, 0.0, -1e9).float()[:, None, None, :]
+            # the gradient as the heads' merge hands it back: non-contiguous
+            gy = _randn((b, lq, h, d), 3, dtype).transpose(1, 2)
+            rec = _grad_case(lambda q, k, v: ops.sdpa(q, k, v, bias=bias),
+                             lambda q, k, v: flash_attention.sdpa_plain(
+                                 q, k, v, bias=bias, scale=d ** -0.5),
+                             (q, k, v), gy, dtype)
+            cases.append({"kernel": "flash_attention", "name": f"{case} b32", "dtype": name,
+                          **rec})
+    torch.cuda.empty_cache()
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        fail("gradient through a kernel's Function disagrees with plain autograd: "
+             + "; ".join(f"{c['name']} {c['dtype']} err {c['max_abs_err']:.3g}" for c in bad))
+    return {"cases": cases}
+
+
+def _dropout_masks(rs, spec, batch, rate):
+    """Keep masks for every UNet block (models/unet.py), from numpy."""
+    from psg_tpu_torch.models.unet import unet_block_count
+
+    nlvl, bpl = len(spec.channels), spec.blocks_per_level
+    levels = ([(lvl, spec.attention_levels[lvl]) for lvl in range(nlvl) for _ in range(bpl)]
+              + [(nlvl - 1, True)]
+              + [(lvl, spec.attention_levels[lvl]) for lvl in reversed(range(nlvl))
+                 for _ in range(bpl)])
+    assert len(levels) == unet_block_count(spec)
+    out = []
+    for lvl, attn in levels:
+        c, n = spec.channels[lvl], spec.spatial[lvl] ** 2
+        head = (batch, spec.num_heads, n, c // spec.num_heads)
+        out.append(tuple(torch.from_numpy(rs.uniform(size=s) < 1.0 - rate)
+                         for s in (head, head, (batch, n, c))) if attn else None)
+    return out
+
+
+def _tiny_train_config(exp, corpus):
+    cfg = tiny_config()
+    cfg.experiment_dir = str(exp)
+    cfg.data.csv_path, cfg.data.image_dir = map(str, corpus)
+    cfg.data.batch_size = 2
+    cfg.data.num_workers = 2
+    cfg.optimization.ema_decay = 0.99
+    cfg.extra = {"snr_gamma": 5.0, "cond_dropout": 0.5}
+    return cfg
+
+
+def phase_train_card_vs_cpu(tmp):
+    """(b) One tiny trainer on the CPU (plain versions) and one on the card
+    (kernels), the same parameters, batches and draws: the first step's loss
+    and gradients, then the parameters after 3 steps."""
+    from psg_tpu_torch import ops
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.data.synthetic import write_sprite_corpus
+    from psg_tpu_torch.models import bridge
+    from psg_tpu_torch.nn.layers import prepare_weights
+    from psg_tpu_torch.train.stage2_diffusion import DiffusionTrainer
+
+    corpus = write_sprite_corpus(Path(tmp) / "tiny_corpus", n=12, seed=0, size=64)
+    cfg = _tiny_train_config(Path(tmp) / "tiny_exp", corpus)
+    cpu = DiffusionTrainer(cfg, None, experiment_name="cpu", device="cpu")
+    card = DiffusionTrainer(cfg, None, experiment_name="card", device="cuda")
+    card.frozen = prepare_weights(bridge.fit(card.frozen, cpu.frozen))
+    card.state = card._fresh_state(bridge.fit(card.state.params, cpu.state.params), step=0,
+                                   rng=card.state.rng)
+    rs = np.random.RandomState(0)
+    batches = [next(iter(cpu.train_loader)) for _ in range(3)]
+    b, lat = cfg.data.batch_size, (cfg.data.batch_size, cpu.latent_size, cpu.latent_size,
+                                   cfg.model.latent_dim)
+    draws = [{"rep_noise": torch.from_numpy(rs.randn(*lat).astype(np.float32)),
+              "t": torch.from_numpy(rs.randint(0, cpu.schedule.num_timesteps, b)),
+              "noise": torch.from_numpy(rs.randn(*lat).astype(np.float32)),
+              "keep": torch.from_numpy(rs.uniform(size=(b, 1, 1)) >= cpu.cond_dropout),
+              "dropout": _dropout_masks(rs, cpu.spec, b, cpu.spec.attn_dropout)}
+             for _ in batches]
+    ops.reset_launch_counts()
+    loss_cpu, g_cpu = cpu._grads(cpu._batch(batches[0]), draws[0])
+    loss_card, g_card = card._grads(card._batch(batches[0]), draws[0])
+    ops_counts = ops.launch_counts()
+    loss_rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+    grad_err = 0.0
+    for (path, r), (_, g) in zip(tree.items(g_cpu), tree.items(g_card)):
+        err = (g.float().cpu() - r).abs().max().item()
+        bound = TRAIN_GRAD_RTOL * r.abs().max().item() + 1e-6
+        grad_err = max(grad_err, err / bound)
+        if not err <= bound:
+            fail(f"train card vs CPU: gradient {path} max|dg| {err:.3g} > {bound:.3g}")
+    if not loss_rel <= TRAIN_LOSS_RTOL:
+        fail(f"train card vs CPU: loss rel diff {loss_rel:.3g} > {TRAIN_LOSS_RTOL}")
+    cpu._apply_update(loss_cpu, g_cpu)
+    card._apply_update(loss_card, g_card)
+    for batch, d in zip(batches[1:], draws[1:]):
+        cpu._step(cpu._batch(batch), d)
+        card._step(card._batch(batch), d)
+    param_err = max((a.detach().cpu() - r.detach()).abs().max().item() for a, r in zip(
+        tree.leaves(card.state.params), tree.leaves(cpu.state.params)))
+    ema_err = max((a.cpu() - r).abs().max().item() for a, r in zip(
+        tree.leaves(card.state.ema), tree.leaves(cpu.state.ema)))
+    if not max(param_err, ema_err) <= TRAIN_PARAM_ATOL:
+        fail(f"train card vs CPU: params after 3 steps {param_err:.3g}, ema {ema_err:.3g} "
+             f"> {TRAIN_PARAM_ATOL}")
+    if min(ops_counts[k] for k in ("group_norm_silu", "flash_attention")) == 0:
+        fail(f"train card vs CPU: a kernel was not launched: {ops_counts}")
+    return {"loss_cpu": float(loss_cpu), "loss_card": float(loss_card), "loss_rel": loss_rel,
+            "loss_rtol": TRAIN_LOSS_RTOL, "grad_err_over_bound": grad_err,
+            "grad_rtol": TRAIN_GRAD_RTOL, "params_after_3_steps_max_abs": param_err,
+            "ema_after_3_steps_max_abs": ema_err, "params_atol": TRAIN_PARAM_ATOL,
+            "first_step_launches": ops_counts}
+
+
+def predicted_train_launches(trainer):
+    """Forward launches of one training step (the backward recomputes the
+    plain versions and launches nothing): a text encode, a VAE encode and a
+    UNet evaluation."""
+    return predicted_launches(trainer, 1, text_encodes=1, encodes=1, decodes=0)
+
+
+def phase_train_full_width(tmp):
+    """(c) config/train_config.yaml at full width on 128 sprites: the
+    trainer's train_epoch (3 steps at batch 32), validate, generate_samples
+    (DDIM 10 steps) and save_checkpoint_fast (the light bf16 best); then the
+    serving generator resolves that checkpoint through the hub and serves one
+    DPM-10 request.  Counts are set to 0 before train_epoch and read after
+    the request."""
+    import shutil
+
+    from psg_tpu_torch import ops
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.core.config import load_config
+    from psg_tpu_torch.data import native
+    from psg_tpu_torch.data.synthetic import write_sprite_corpus
+    from psg_tpu_torch.serve import hub
+    from psg_tpu_torch.serve.generator import PokemonGenerator
+    from psg_tpu_torch.train.stage2_diffusion import DiffusionTrainer
+
+    corpus = write_sprite_corpus(Path(tmp) / "corpus128", n=128, seed=0, size=215)
+    exp = Path(tmp) / "exp"
+    exp.mkdir()
+    shutil.copy(VOCAB, exp / "vocab.txt")   # the committed vocabulary, as in phases 4-5
+    cfg = load_config(CONFIG, [f"experiment_dir={exp}", f"data.csv_path={corpus[0]}",
+                               f"data.image_dir={corpus[1]}", "extra.sample_steps=10"])
+    if (cfg.model.compute_dtype, cfg.data.image_size, cfg.data.batch_size) != (
+            "bfloat16", 215, 32):
+        fail(f"{CONFIG.name} is not the full-width bf16 batch-32 configuration")
+    if not native.available():
+        fail("the native augmentation engine did not build: the loader would switch "
+             "engines and change every augmented batch")
+    t0 = time.perf_counter()
+    trainer = DiffusionTrainer(cfg, None, experiment_name="smoke", device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if len(trainer.train_loader) != FULL_STEPS:
+        fail(f"the full-width epoch has {len(trainer.train_loader)} steps, not {FULL_STEPS}")
+    n_params = sum(t.numel() for t in tree.leaves(trainer.state.params))
+    watch = [t.detach().clone() for t in tree.leaves(trainer.state.params)[::97]]
+
+    step_s, step_loss = [], []
+    orig_step = trainer._step
+
+    def timed_step(batch, draws=None):   # each step's wall, host clock to a sync
+        t = time.perf_counter()
+        parts = orig_step(batch, draws)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        step_loss.append(float(parts["loss"]))
+        return parts
+
+    trainer._step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()          # this path's counted run starts here
+    per_step = predicted_train_launches(trainer)
+    sample_steps = int(cfg.extra["sample_steps"])
+    want = {"train_epoch": {k: FULL_STEPS * v for k, v in per_step.items()},
+            "validate": {k: len(trainer.val_loader) * v for k, v in per_step.items()},
+            "generate_samples": predicted_launches(trainer, sample_steps)}
+    got = {}
+
+    def part(name, fn):
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        got[name] = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        return out, time.perf_counter() - t
+
+    stats, epoch_s = part("train_epoch", lambda: trainer.train_epoch(0))
+    val, val_s = part("validate", lambda: trainer.validate(0))
+    grid, sample_s = part("generate_samples", lambda: trainer.generate_samples(0))
+    peak = torch.cuda.max_memory_allocated()
+    t0 = time.perf_counter()
+    if not trainer.save_checkpoint_fast(0, val):
+        fail("save_checkpoint_fast wrote no best checkpoint")
+    save_s = time.perf_counter() - t0
+    best = trainer.ckpt.best_path
+    ckpt_gb = best.stat().st_size / 1e9
+    skipped = trainer.skipped_batches()
+    changed = sum(not torch.equal(a, b.detach()) for a, b in zip(
+        watch, tree.leaves(trainer.state.params)[::97]))
+    tokenizer = trainer.tokenizer
+    del trainer
+    torch.cuda.empty_cache()
+
+    vae_ckpt, diff_ckpt = hub.resolve_checkpoints(cfg, "smoke", allow_hub=False)
+    if (vae_ckpt, diff_ckpt) != (None, str(best)):
+        fail(f"hub resolved {vae_ckpt}, {diff_ckpt}, not the trainer's {best}")
+    t0 = time.perf_counter()
+    gen = PokemonGenerator(cfg, vae_checkpoint=vae_ckpt, diffusion_checkpoint=diff_ckpt,
+                           tokenizer=tokenizer, sampler="dpmpp", device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    want["serve DPM-10"] = predicted_launches(gen, 10)
+    img, serve_s = part("serve DPM-10", lambda: np.asarray(
+        gen.generate_from_text(PROMPTS[0], 10, seed=3), np.float32))
+    launches = ops.launch_counts()     # ... and ends here
+    for name in want:
+        if got[name] != want[name]:
+            fail(f"{name}: kernel launches {got[name]} != predicted {want[name]}")
+    if not (np.isfinite(step_loss).all() and np.isfinite(stats["loss"]) and np.isfinite(val)):
+        fail(f"non-finite loss: steps {step_loss}, val {val}")
+    if skipped:
+        fail(f"{skipped} skipped steps")
+    if not changed:
+        fail("train_epoch left the parameters as they were")
+    if gen.loaded != "unet-only" or img.shape != (215, 215, 3) or not np.isfinite(img).all():
+        fail(f"serving from the trained checkpoint: loaded={gen.loaded}, image {img.shape}")
+    steady = float(np.mean(step_s[1:]))
+    del gen
+    torch.cuda.empty_cache()
+    return {"params": n_params, "init_s": init_s, "step_s": step_s,
+            "step_wall_after_first_s": steady, "samples_per_s": 32 / steady,
+            "epoch_s": epoch_s, "step_loss": step_loss, "train_loss": stats["loss"],
+            "grad_norm": stats["grad_norm"], "val_loss": val, "validate_s": val_s,
+            "generate_samples_s": sample_s, "sample_grid": grid.name,
+            "peak_mem_gb": peak / 1e9, "skipped_batches": skipped,
+            "watched_leaves_changed": f"{changed}/{len(watch)}",
+            "save_best_light_s": save_s, "checkpoint_gb": ckpt_gb,
+            "serve_load_s": load_s, "serve_dpm10_s": serve_s, "loaded": "unet-only",
+            "predicted_per_step": per_step, "launches_by_part": got,
+            "launches": launches}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -798,6 +1119,7 @@ def main(argv=None):
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    os.environ["HF_HUB_OFFLINE"] = "1"   # checkpoint resolution never asks the network
     from psg_tpu_torch import ops
     from psg_tpu_torch.ops import cuda_build
 
@@ -857,6 +1179,17 @@ def main(argv=None):
         emit("serve_paths_full_width", {"card": card, **paths,
                                         "seconds": time.perf_counter() - t})
         del gen
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        t = time.perf_counter()
+        grads = phase_train_gradients()
+        tiny = phase_train_card_vs_cpu(tmp)
+        t_full = time.perf_counter()
+        full = phase_train_full_width(tmp)
+        emit("train", {"card": card, "gradients": grads, "card_vs_cpu": tiny,
+                       "full_width": full, "full_width_seconds": time.perf_counter() - t_full,
+                       "seconds": time.perf_counter() - t})
 
     by_name = {(r["kernel"], r["name"], r["dtype"]): r for r in results}
     kernels = []
@@ -864,7 +1197,8 @@ def main(argv=None):
         r = by_name[(kname, case, "bfloat16")]
         kernels.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaces, "shape": case, "dtype": "bfloat16",
-                        "launches": serve["launches"][kname] + paths["launches"][kname],
+                        "launches": (serve["launches"][kname] + paths["launches"][kname]
+                                     + full["launches"][kname]),
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

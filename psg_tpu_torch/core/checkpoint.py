@@ -1,29 +1,41 @@
-"""Read ``psg_tpu`` checkpoints without JAX (read side of
-``psg_tpu/core/checkpoint.py``).
+"""``psg_tpu`` checkpoints without JAX (port of ``psg_tpu/core/checkpoint.py``).
 
 A ``psg_tpu`` checkpoint is flax msgpack: a msgpack map whose arrays are
 ext type 1 holding ``(shape, dtype name, raw bytes)``, whose lists were
 written as maps keyed ``'0'``, ``'1'``, ..., and whose arrays above 1 GiB
 are split into ``__msgpack_chunked_array__`` maps.  bf16 arrays (light
-checkpoints) come back as torch bf16 tensors.
+checkpoints) come back as torch bf16 tensors.  Beside it, a JSON sidecar
+(``.json``) holds the step, stage, metric, epoch, VAE checkpoint, config and
+``light`` flag.
 
-Unlike the JAX loader, a checkpoint the caller named that cannot be read or
-does not fit the requested architecture raises; it never turns into random
-weights.
+The writer (``save_state``, ``CheckpointManager``) writes the same format,
+so the JAX package reads what the port trains: parameters and EMA in the JAX
+layout (``bridge.to_jax``) under ``params`` and ``ema``; the optimizer state
+under ``opt_state`` in the port's own layout, which only the port resumes
+from.  Writes are atomic (temporary file, then rename) and a failed write
+raises.  Unlike the JAX loader, a checkpoint the caller named that cannot be
+read or does not fit the requested architecture raises; it never turns into
+random weights.
 """
 
 from __future__ import annotations
 
+import json
+import os
+import time
 from pathlib import Path
+from typing import Any, Dict, List, Optional
 
 import msgpack
 import numpy as np
 import torch
 
+from psg_tpu_torch.core import tree as tree_util
 from psg_tpu_torch.models import bridge
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
+_MAX_EXT_BYTES = 2 ** 32 - 1   # a msgpack ext value's limit
 
 
 def _array(data: bytes):
@@ -107,3 +119,147 @@ def load_serving_params(vae_ckpt, diff_ckpt, template):
     tag = {(): "none", ("vae",): "vae-only", ("unet",): "unet-only",
            ("vae", "unet"): "pair"}[tuple(loaded)]
     return out, tag
+
+
+# ---------------------------------------------------------------------------
+# writer
+# ---------------------------------------------------------------------------
+
+
+def _array_payload(a) -> bytes:
+    """(shape, dtype name, raw bytes) as flax packs an array."""
+    if isinstance(a, torch.Tensor):
+        t = a.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return msgpack.packb((list(t.shape), "bfloat16",
+                                  t.view(torch.int16).numpy().tobytes()),
+                                 use_bin_type=True)
+        a = t.numpy()
+    a = np.asarray(a)
+    return msgpack.packb((list(a.shape), a.dtype.name, a.tobytes("C")), use_bin_type=True)
+
+
+def _write(f, packer: msgpack.Packer, obj) -> None:
+    """Stream ``obj`` to ``f`` one array at a time.  (flax splits arrays
+    above 1 GiB into chunks; its reader takes them whole as well, so this
+    writer does not, and raises only past msgpack's 4 GiB limit.)"""
+    if isinstance(obj, dict):
+        f.write(packer.pack_map_header(len(obj)))
+        for k, v in obj.items():
+            f.write(packer.pack(str(k)))
+            _write(f, packer, v)
+    elif isinstance(obj, (list, tuple)):
+        _write(f, packer, {str(i): v for i, v in enumerate(obj)})
+    elif isinstance(obj, (torch.Tensor, np.ndarray)):
+        payload = _array_payload(obj)
+        if len(payload) > _MAX_EXT_BYTES:
+            raise ValueError(f"array of {len(payload)} bytes exceeds msgpack's ext limit")
+        f.write(packer.pack(msgpack.ExtType(_EXT_NDARRAY, payload)))
+    elif isinstance(obj, np.generic):
+        f.write(packer.pack(msgpack.ExtType(_EXT_NPSCALAR, _array_payload(np.asarray(obj)))))
+    else:
+        f.write(packer.pack(obj))
+
+
+def save_state(path, state: Dict[str, Any], metadata: Optional[Dict[str, Any]] = None):
+    """Write ``state`` (a tree of tensors, numpy arrays and plain values) as
+    flax msgpack at ``path``, atomically, and ``metadata`` as its sidecar."""
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tmp = path.with_suffix(path.suffix + f".{os.getpid()}.tmp")
+    try:
+        with open(tmp, "wb") as f:
+            _write(f, msgpack.Packer(use_bin_type=True, strict_types=True), state)
+        os.replace(tmp, path)
+    finally:
+        tmp.unlink(missing_ok=True)
+    if metadata is not None:
+        side = path.with_suffix(".json")
+        side_tmp = side.with_suffix(f".json.{os.getpid()}.tmp")
+        side_tmp.write_text(json.dumps(metadata, indent=2))
+        os.replace(side_tmp, side)
+
+
+def load_metadata(path) -> Dict[str, Any]:
+    p = Path(path).with_suffix(".json")
+    return json.loads(p.read_text()) if p.exists() else {}
+
+
+class CheckpointManager:
+    """Best-model checkpoint and keep-last-N periodic rotation for one
+    training stage, at ``{dir}/{stage}_best_model.ckpt`` and
+    ``{dir}/{stage}_step_NNNNNNNN.ckpt``.  ``save`` takes a state with a
+    ``to_checkpoint()`` method (``train.state.TrainState``)."""
+
+    def __init__(self, directory, stage: str, keep: int = 5):
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.stage = stage
+        self.keep = keep
+        self.best_metric = float("inf")
+
+    @property
+    def best_path(self) -> Path:
+        return self.dir / f"{self.stage}_best_model.ckpt"
+
+    def latest_path(self) -> Optional[Path]:
+        cks = self._periodic()
+        return cks[-1] if cks else None
+
+    def _periodic(self) -> List[Path]:
+        return sorted(self.dir.glob(f"{self.stage}_step_*.ckpt"),
+                      key=lambda p: int(p.stem.split("_")[-1]))
+
+    def _meta(self, step: int, metric, extra_meta) -> Dict[str, Any]:
+        meta = {"step": int(step), "time": time.time(), "stage": self.stage}
+        if metric is not None:
+            meta["metric"] = float(metric)
+        meta.update(extra_meta or {})
+        return meta
+
+    def save(self, state, step: int, metric: Optional[float] = None,
+             extra_meta: Optional[Dict[str, Any]] = None, periodic: bool = True) -> bool:
+        """Write a periodic checkpoint (rotating out all but the newest
+        ``keep``) and, when ``metric`` beats the best so far, the best one.
+        Returns True if this became the new best."""
+        meta = self._meta(step, metric, extra_meta)
+        is_best = metric is not None and metric < self.best_metric
+        if not (periodic or is_best):
+            return False
+        tree = state.to_checkpoint()
+        if periodic:
+            new_path = self.dir / f"{self.stage}_step_{step:08d}.ckpt"
+            existing = [p for p in self._periodic() if p != new_path]
+            victims = [*existing, new_path][:-self.keep]
+            save_state(new_path, tree, meta)
+            for old in victims:
+                old.unlink(missing_ok=True)
+                old.with_suffix(".json").unlink(missing_ok=True)
+        if is_best:
+            self.best_metric = float(metric)
+            save_state(self.best_path, tree, meta)
+        return is_best
+
+    def save_best_light(self, sample_params, step: int, metric: float,
+                        extra_meta: Optional[Dict[str, Any]] = None) -> bool:
+        """Best-model write carrying only the sampling parameters in bf16
+        (what serving and the next stage read); returns True if written."""
+        if metric >= self.best_metric:
+            return False
+        self.best_metric = float(metric)
+        meta = {**self._meta(step, metric, None), "light": True, **(extra_meta or {})}
+        light = tree_util.map(
+            lambda t: t.to(torch.bfloat16) if t.dtype == torch.float32 else t, sample_params)
+        save_state(self.best_path, {"params": bridge.to_jax(light)}, meta)
+        return True
+
+    def restore(self, target, best: bool = True):
+        """(state, metadata) from the best or the newest periodic
+        checkpoint; ``target.from_checkpoint`` maps it onto the caller's
+        state."""
+        path = self.best_path if best else self.latest_path()
+        if path is None or not path.exists():
+            raise FileNotFoundError(f"no checkpoint in {self.dir}")
+        meta = load_metadata(path)
+        self.best_metric = meta.get("metric", float("inf"))
+        return target.from_checkpoint(read_checkpoint(path)), meta

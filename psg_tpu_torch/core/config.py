@@ -143,6 +143,9 @@ class Config:
     # sections this package does not model (e.g. guidance_rescale)
     extra: Dict[str, Any] = field(default_factory=dict)
 
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
 
 _SECTIONS = {
     "model": ModelConfig,

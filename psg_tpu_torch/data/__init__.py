@@ -1,3 +1,5 @@
-"""Data layer: the caption CSV and sprites (``dataset``), and a small corpus
+"""Data layer: the caption CSV and sprites (``dataset``), host augmentation
+(``augment``, and the native engine ``native``), caption variants
+(``caption_augment``), the training loader (``loader``), and a small corpus
 made from a seed for tests and smoke runs (``synthetic``).  Importing the
-package loads neither module."""
+package loads none of them."""

@@ -1,7 +1,8 @@
-"""Pokemon sprite dataset, read side (port of ``psg_tpu/data/dataset.py``).
+"""Pokemon sprite dataset (port of ``psg_tpu/data/dataset.py``).
 
-What serving needs of the dataset: the caption CSV and the sprites, for the
-``mean`` CFG negative, retrieval seeding and the tokenizer's corpus fallback.
+The caption CSV and the sprites, for serving (the ``mean`` CFG negative,
+retrieval seeding, the tokenizer's corpus fallback) and for training (the
+seeded train/val/test split, caption variants, dataset statistics):
 
 - semicolon-separated 2-column CSV (``name; description``) with
   ``national_number`` synthesized as row-index+1 and utf-8 -> utf-16 ->
@@ -10,7 +11,10 @@ What serving needs of the dataset: the caption CSV and the sprites, for the
   (default white) for RGBA/LA and palette-with-transparency images, resized
   to ``image_size`` (bilinear) and kept as uint8;
 - ``full_description = "Pokemon named {name}. {description}."``;
-- entries with missing images are filtered out.
+- entries with missing images are filtered out;
+- ``split_indices``: the seeded 80/15/5 permutation split;
+- ``set_caption_variants``: K pre-tokenized caption variants per sample
+  (``caption_augment.py``), variant 0 canonical.
 
 numpy and PIL only.
 """
@@ -156,6 +160,24 @@ class PokemonDataset:
         else:
             self.text_ids = self.text_mask = None
             self.desc_ids = self.desc_mask = None
+        self.text_ids_aug = self.text_mask_aug = None
+
+    def set_caption_variants(self, k: int, seed: int = 0,
+                             p_name_drop: float = 0.5) -> None:
+        """Pre-tokenize K augmented caption variants per sample; batches
+        gain ``text_ids_aug`` / ``text_mask_aug`` shaped [N, K, L] with
+        variant 0 canonical.  Requires a tokenizer."""
+        from psg_tpu_torch.data.caption_augment import caption_variants
+
+        if self.tokenizer is None:
+            raise ValueError("set a tokenizer before caption variants")
+        variants = caption_variants(self.full_descriptions, k, seed,
+                                    p_name_drop=p_name_drop)
+        flat = [v for vs in variants for v in vs]
+        ids, mask = self.tokenizer.encode_batch(flat, max_len=self.text_len)
+        n = len(variants)
+        self.text_ids_aug = ids.reshape(n, k, -1)
+        self.text_mask_aug = mask.reshape(n, k, -1)
 
     def __len__(self) -> int:
         return len(self.rows)
@@ -163,3 +185,31 @@ class PokemonDataset:
     def image_float(self, idx) -> np.ndarray:
         """uint8 -> fp32 in [-1, 1] (Normalize(0.5, 0.5))."""
         return self.images[idx].astype(np.float32) / 127.5 - 1.0
+
+
+def split_indices(n: int, val_split: float, test_split: float,
+                  seed: int = 42) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Seeded train/val/test split: test = int(n*test), val = int(n*val),
+    train = the rest, cut from one ``RandomState(seed)`` permutation."""
+    perm = np.random.RandomState(seed).permutation(n)
+    n_test = int(n * test_split)
+    n_val = int(n * val_split)
+    n_train = n - n_val - n_test
+    return perm[:n_train], perm[n_train:n_train + n_val], perm[n_train + n_val:]
+
+
+def dataset_statistics(ds: PokemonDataset, sample: int = 100) -> Dict:
+    """Sample count, image size, description word counts over the first
+    ``sample`` rows, and the first five names."""
+    k = min(sample, len(ds))
+    desc_lens = [len(d.split()) for d in ds.descriptions[:k]]
+    return {
+        "total_samples": len(ds),
+        "image_size": ds.image_size,
+        "description_length_stats": {
+            "mean": float(np.mean(desc_lens)) if desc_lens else 0.0,
+            "min": int(np.min(desc_lens)) if desc_lens else 0,
+            "max": int(np.max(desc_lens)) if desc_lens else 0,
+        },
+        "sample_names": ds.names[:5],
+    }

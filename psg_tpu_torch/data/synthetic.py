@@ -4,8 +4,10 @@
 sprites (RGBA, palette with a transparent index, and plain RGB, in turn), so
 the paths that read the dataset (the ``mean`` CFG negative, retrieval
 seeding, the tokenizer's corpus fallback) run without the real 898-sprite
-dataset.  Each caption takes its own colour, type and feature, so no two
-captions share their content words and retrieval has no near ties.
+dataset.  Up to 12 sprites, each caption takes its own colour, type and
+feature, so no two captions share their content words and retrieval has no
+near ties; a larger corpus (a training epoch of several batches) gives each
+sprite its own (colour, type, feature) triple.
 """
 
 from __future__ import annotations
@@ -27,12 +29,13 @@ FEATURES = ("a flame on its tail", "a hard shell", "a leaf on its head", "round 
             "two small wings", "a crystal crest", "striped fur", "a curled antenna")
 SYLLABLES = ("bu", "la", "zor", "mi", "ka", "to", "ren", "vy", "po", "sha", "qui", "dex")
 
-MAX_SPRITES = len(TYPES)
+UNIQUE_WORDS = len(TYPES)
+MAX_SPRITES = len(COLORS) * len(TYPES) * len(FEATURES)
 
 
 def write_sprite_corpus(root, n: int = 8, seed: int = 0, size: int = 96,
                         encoding: str = "utf-8") -> Tuple[Path, Path]:
-    """Write ``n`` (<= 12) sprites and their captions under ``root``;
+    """Write ``n`` (<= 1728) sprites and their captions under ``root``;
     returns ``(csv_path, image_dir)``."""
     if not 1 <= n <= MAX_SPRITES:
         raise ValueError(f"n must be in 1..{MAX_SPRITES}")
@@ -40,9 +43,16 @@ def write_sprite_corpus(root, n: int = 8, seed: int = 0, size: int = 96,
     root = Path(root)
     image_dir = root / "images"
     image_dir.mkdir(parents=True, exist_ok=True)
-    colors = [list(COLORS)[i] for i in rng.permutation(len(COLORS))[:n]]
-    types = [TYPES[i] for i in rng.permutation(len(TYPES))[:n]]
-    feats = [FEATURES[i] for i in rng.permutation(len(FEATURES))[:n]]
+    if n <= UNIQUE_WORDS:
+        colors = [list(COLORS)[i] for i in rng.permutation(len(COLORS))[:n]]
+        types = [TYPES[i] for i in rng.permutation(len(TYPES))[:n]]
+        feats = [FEATURES[i] for i in rng.permutation(len(FEATURES))[:n]]
+    else:
+        nt, nf = len(TYPES), len(FEATURES)
+        triples = rng.permutation(MAX_SPRITES)[:n]
+        colors = [list(COLORS)[i // (nt * nf)] for i in triples]
+        types = [TYPES[i // nf % nt] for i in triples]
+        feats = [FEATURES[i % nf] for i in triples]
     lines = []
     for i in range(n):
         name = "".join(SYLLABLES[j] for j in rng.randint(0, len(SYLLABLES), 3)).title()

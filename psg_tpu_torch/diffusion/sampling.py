@@ -17,9 +17,11 @@ given, and the four DDPM-family samplers draw one gaussian a step from it
 unless ``noises`` ([steps, *x.shape]) gives them, which is how the tests
 inject the reference's draws.  DDIM (eta 0: the reference's eta > 0 has no
 caller and is not ported) and DPM-Solver++ are deterministic from the
-initial latent.  All take ``denoise_fn(x_t, t_batch) -> eps_hat``;
-classifier-free guidance lives in that function (the generator fuses both
-branches into one UNet call for DDIM and DPM-Solver++).
+initial latent.  All take ``denoise_fn(x_t, t_batch) -> eps_hat``.  The
+generator puts classifier-free guidance inside that function (both branches
+in one UNet call, for DDIM and DPM-Solver++); the trainer's DDIM sample
+grids use the unfused form instead, ``ddim_sample``'s ``guidance_scale``
+with ``uncond_denoise_fn``: eps = (1 + g) eps_cond - g eps_uncond.
 """
 
 from __future__ import annotations
@@ -85,9 +87,19 @@ def renoise_timesteps(num_timesteps: int, steps: int) -> np.ndarray:
     return linspace_f32(num_timesteps - 1, 0, steps).astype(np.int32)
 
 
+def _guided(denoise_fn, x, tb, guidance_scale: float, uncond_denoise_fn):
+    """eps, with unfused classifier-free guidance when asked for."""
+    eps = denoise_fn(x, tb).float()
+    if guidance_scale > 0.0 and uncond_denoise_fn is not None:
+        eps_u = uncond_denoise_fn(x, tb).float()
+        eps = (1.0 + guidance_scale) * eps - guidance_scale * eps_u
+    return eps
+
+
 def ddim_sample(denoise_fn: Callable, schedule: DiffusionSchedule, generator=None,
                 shape=None, initial_latent=None, num_inference_steps: int = 50,
-                clip_x0: Optional[float] = None):
+                clip_x0: Optional[float] = None, guidance_scale: float = 0.0,
+                uncond_denoise_fn: Optional[Callable] = None):
     """DDIM (Song et al. 2020) at eta 0: jumps between visited timesteps
     through the predicted x0.
 
@@ -110,7 +122,7 @@ def ddim_sample(denoise_fn: Callable, schedule: DiffusionSchedule, generator=Non
 
     for i in range(steps):
         tb = _t_batch(ts[i], b, x.device)
-        eps = denoise_fn(x, tb).float()
+        eps = _guided(denoise_fn, x, tb, float(guidance_scale), uncond_denoise_fn)
         x0_hat = (x - float(s_om[i]) * eps) * float(r_acp[i])
         if clip_x0 is not None:
             x0_hat = x0_hat.clamp(-clip_x0, clip_x0)

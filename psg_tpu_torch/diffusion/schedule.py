@@ -54,6 +54,23 @@ class DiffusionSchedule:
     def num_timesteps(self) -> int:
         return self.betas.shape[0]
 
+    def _at(self, table, timesteps, like):
+        """table[timesteps] on ``like``'s device, shaped to broadcast over it."""
+        shape = (-1,) + (1,) * (like.ndim - 1)
+        return table.to(like.device)[timesteps.long()].reshape(shape)
+
+    def add_noise(self, x0, noise, timesteps):
+        """q_sample: sqrt(acp_t) x0 + sqrt(1-acp_t) eps, in fp32."""
+        return (self._at(self.sqrt_alphas_cumprod, timesteps, x0) * x0.float()
+                + self._at(self.sqrt_one_minus_alphas_cumprod, timesteps, x0)
+                * noise.float())
+
+    def velocity(self, x0, noise, timesteps):
+        """v-prediction target: sqrt(acp_t) eps - sqrt(1-acp_t) x0, in fp32."""
+        return (self._at(self.sqrt_alphas_cumprod, timesteps, x0) * noise.float()
+                - self._at(self.sqrt_one_minus_alphas_cumprod, timesteps, x0)
+                * x0.float())
+
     def eps_from_v(self, v, x_t, timesteps):
         """eps = sqrt(acp_t) v + sqrt(1-acp_t) x_t for a v-prediction model."""
         shape = (-1,) + (1,) * (v.ndim - 1)

@@ -1,4 +1,5 @@
-"""Parameter bridge: a ``psg_tpu`` parameter tree -> this package's tree.
+"""Parameter bridge between a ``psg_tpu`` parameter tree and this package's
+tree (``from_jax``) and back (``to_jax``, what the checkpoint writer saves).
 
 The JAX package stores conv kernels HWIO and linear kernels ``[in, out]``;
 this package keeps ``[in, out]`` for linear kernels (and the fused attention
@@ -37,6 +38,20 @@ def from_jax(tree, name: str = ""):
     if isinstance(tree, (list, tuple)):
         return [from_jax(v, name) for v in tree]
     return _leaf(name, tree)
+
+
+def to_jax(tree, name: str = ""):
+    """Inverse of ``from_jax``: conv kernels OIHW -> HWIO, lists as dicts
+    keyed ``'0'``, ``'1'``, ... (flax's state-dict form), leaves as detached
+    CPU tensors in their own dtype."""
+    if isinstance(tree, dict):
+        return {k: to_jax(v, k) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): to_jax(v, name) for i, v in enumerate(tree)}
+    t = tree.detach()
+    if name == "w" and t.ndim == 4:  # OIHW -> HWIO
+        t = t.permute(2, 3, 1, 0)
+    return t.cpu().contiguous()
 
 
 def fit(template, tree, path: str = "params"):

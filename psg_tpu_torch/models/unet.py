@@ -13,6 +13,16 @@
   scales.
 
 Layout is NHWC end to end; GroupNorm+SiLU and attention go through ``ops``.
+
+Training applies ``UNetSpec.attn_dropout`` in every attention block, as the
+JAX package does: after the self- and the cross-attention core and on the
+FFN output.  ``unet_apply(dropout=...)`` takes a ``torch.Generator`` to draw
+the keep masks from, or the masks themselves: one entry per UNet block in
+the order the blocks run (``unet_block_count``), each a triple (self, cross,
+FFN) of boolean masks or ``None`` for a block without attention.  The JAX
+package draws block ``i``'s triple from ``split(split(dropout_key, (2L + 1)B
++ 1)[i], 3)`` (L levels, B blocks a level; the last 2B keys go unused); the
+tests pass those masks in.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from psg_tpu_torch import ops
+from psg_tpu_torch.nn.attention import dropout as apply_dropout
 from psg_tpu_torch.nn.attention import mha, mha_init
 from psg_tpu_torch.nn.embeddings import sinusoidal_time_embedding
 from psg_tpu_torch.nn.layers import (
@@ -127,25 +138,30 @@ def attnblock_init(gen, channels: int, text_dim: int):
 
 
 def attnblock_apply(params, x, text_seq, spec: UNetSpec, *, channels: int,
-                    text_bias=None, dtype=None):
-    """x: [B,H,W,C]; text_seq: [B,S,text_dim]."""
+                    text_bias=None, dtype=None, dropout=None):
+    """x: [B,H,W,C]; text_seq: [B,S,text_dim].  ``dropout``: None, a
+    ``torch.Generator``, or a (self, cross, FFN) triple of keep masks."""
     b, h, w, c = x.shape
     g = largest_group_count(channels)
     seq = x.reshape(b, h * w, c)
+    rate = spec.attn_dropout if dropout is not None else 0.0
+    keeps = (dropout,) * 3 if isinstance(dropout, torch.Generator) or dropout is None \
+        else dropout
 
     xn = group_norm(params["norm1"], seq, g, eps=1e-6)
-    attn = mha(params["self_attn"], xn, xn, spec.num_heads, dtype=dtype)
+    attn = mha(params["self_attn"], xn, xn, spec.num_heads, dtype=dtype,
+               dropout_rate=rate, dropout_keep=keeps[0])
     seq = seq + spec.self_attn_scale * attn
 
     xn = group_norm(params["norm2"], seq, g, eps=1e-6)
     text_proj = linear(params["text_proj"], text_seq, dtype=dtype)
     attn = mha(params["cross_attn"], xn, text_proj, spec.num_heads,
-               bias=text_bias, dtype=dtype)
+               bias=text_bias, dtype=dtype, dropout_rate=rate, dropout_keep=keeps[1])
     seq = seq + spec.cross_attn_scale * attn
 
     ff = linear(params["ffn1"], seq, dtype=dtype)
     ff = F.gelu(ff)
-    ff = linear(params["ffn2"], ff, dtype=dtype)
+    ff = apply_dropout(linear(params["ffn2"], ff, dtype=dtype), rate, keeps[2])
     seq = seq + spec.ffn_scale * ff
     return seq.reshape(b, h, w, c)
 
@@ -163,12 +179,12 @@ def unetblock_init(gen, cin: int, cout: int, spec: UNetSpec, has_attention: bool
 
 
 def unetblock_apply(params, x, time_emb, text_pooled, text_seq, spec: UNetSpec,
-                    *, cin: int, cout: int, text_bias=None, dtype=None):
+                    *, cin: int, cout: int, text_bias=None, dtype=None, dropout=None):
     x = resblock_apply(params["res"], x, time_emb, text_pooled,
                        cin=cin, cout=cout, dtype=dtype)
     if "attn" in params:
         x = attnblock_apply(params["attn"], x, text_seq, spec, channels=cout,
-                            text_bias=text_bias, dtype=dtype)
+                            text_bias=text_bias, dtype=dtype, dropout=dropout)
     return x
 
 
@@ -228,12 +244,26 @@ def text_bias_from_mask(text_mask):
     return torch.where(text_mask[:, None, None, :] > 0, 0.0, -1e9).float()
 
 
+def unet_block_count(spec: UNetSpec) -> int:
+    """UNet blocks (encoder, middle, decoder), in the order they run."""
+    return 2 * len(spec.channels) * spec.blocks_per_level + 1
+
+
 def unet_apply(params, noisy_latent, timesteps, text_seq, spec: UNetSpec, *,
-               text_mask=None, dtype=None):
+               text_mask=None, dtype=None, dropout=None):
     """Predict noise.  noisy_latent: [B, 27, 27, latent_dim]; timesteps: [B];
-    text_seq: [B, S, text_dim] -> [B, 27, 27, latent_dim]."""
+    text_seq: [B, S, text_dim] -> [B, 27, 27, latent_dim].  ``dropout``:
+    None (no attention dropout), a ``torch.Generator``, or one entry per
+    block (see the module note)."""
     nlvl = len(spec.channels)
     ch = spec.channels
+    if dropout is None or isinstance(dropout, torch.Generator):
+        drops = iter([dropout] * unet_block_count(spec))
+    else:
+        if len(dropout) != unet_block_count(spec):
+            raise ValueError(f"dropout: {len(dropout)} entries for "
+                             f"{unet_block_count(spec)} UNet blocks")
+        drops = iter(dropout)
 
     t = sinusoidal_time_embedding(timesteps, spec.time_emb_dim)
     tm = params["time_mlp"]
@@ -251,11 +281,13 @@ def unet_apply(params, noisy_latent, timesteps, text_seq, spec: UNetSpec, *,
             x = conv2d(params[f"down{lvl}"], x, stride=2, padding=1, dtype=dtype)
         for blk in params[f"enc{lvl}"]:
             x = unetblock_apply(blk, x, time_emb, tp, text_seq, spec,
-                                cin=ch[lvl], cout=ch[lvl], text_bias=tb, dtype=dtype)
+                                cin=ch[lvl], cout=ch[lvl], text_bias=tb, dtype=dtype,
+                                dropout=next(drops))
         skips.append(x)
 
     x = unetblock_apply(params["middle"], x, time_emb, tp, text_seq, spec,
-                        cin=ch[-1], cout=ch[-1], text_bias=tb, dtype=dtype)
+                        cin=ch[-1], cout=ch[-1], text_bias=tb, dtype=dtype,
+                        dropout=next(drops))
 
     for lvl in reversed(range(nlvl)):
         skip = skips.pop()
@@ -264,7 +296,7 @@ def unet_apply(params, noisy_latent, timesteps, text_seq, spec: UNetSpec, *,
             x = torch.cat([x, skip], dim=-1)
             x = unetblock_apply(blk, x, time_emb, tp, text_seq, spec,
                                 cin=2 * ch[lvl], cout=ch[lvl], text_bias=tb,
-                                dtype=dtype)
+                                dtype=dtype, dropout=next(drops))
         if lvl > 0:
             target = spec.spatial[lvl - 1]
             x = bilinear_resize(x, (target, target))

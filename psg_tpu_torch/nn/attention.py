@@ -50,9 +50,24 @@ def mha_init(gen, dim: int, *, gain: Optional[float] = None):
     }
 
 
-def mha(params, q_in, kv_in, num_heads: int, *, bias=None, dtype=None):
+def dropout(x, rate: float, keep):
+    """Inverted dropout as the JAX package writes it: ``where(keep, x /
+    (1 - rate), 0)`` in x's dtype.  ``keep`` is a boolean mask of x's shape,
+    or a ``torch.Generator`` on x's device to draw it from; ``None`` or rate
+    0 leaves x as it is."""
+    if keep is None or rate <= 0.0:
+        return x
+    if isinstance(keep, torch.Generator):
+        keep = torch.rand(x.shape, generator=keep, device=x.device) < 1.0 - rate
+    return torch.where(keep.to(x.device), x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+def mha(params, q_in, kv_in, num_heads: int, *, bias=None, dtype=None,
+        dropout_rate: float = 0.0, dropout_keep=None):
     """Multi-head attention, batch-first.  q_in: [B, Lq, C]; kv_in: [B, Lk, C]
-    -> [B, Lq, C].  ``bias``: None or an additive [B, 1, 1, Lk] key bias."""
+    -> [B, Lq, C].  ``bias``: None or an additive [B, 1, 1, Lk] key bias.
+    ``dropout_keep`` (see ``dropout``) drops attention outputs, [B, H, Lq, hd],
+    before the heads merge."""
     b, lq, c = q_in.shape
     lk = kv_in.shape[1]
     hd = c // num_heads
@@ -72,7 +87,7 @@ def mha(params, q_in, kv_in, num_heads: int, *, bias=None, dtype=None):
     q = q.reshape(b, lq, num_heads, hd).transpose(1, 2)
     k = k.reshape(b, lk, num_heads, hd).transpose(1, 2)
     v = v.reshape(b, lk, num_heads, hd).transpose(1, 2)
-    out = ops.sdpa(q, k, v, bias=bias)
+    out = dropout(ops.sdpa(q, k, v, bias=bias), dropout_rate, dropout_keep)
     out = out.transpose(1, 2).reshape(b, lq, c)
     return linear(params["out_proj"], out, dtype=dtype)
 

@@ -10,6 +10,13 @@ module, a plain PyTorch version of the same function:
 A wrapper takes the plain version for a tensor on the CPU, and for a CUDA
 tensor launches its kernel or raises; nothing falls back.  Each kernel
 library counts its launches (``launch_counts``).
+
+Training differentiates GroupNorm+SiLU and flash attention through
+``torch.autograd.Function``s (``fused_norm.GroupNormSiLU``,
+``flash_attention.FlashSDPA``): the kernel runs forward, and the backward
+recomputes the plain version and takes its gradient, as the TPU package's
+``custom_vjp`` does for its spatial kernel.  A backward launches no kernel,
+so the counts are forward launches only.
 """
 
 from __future__ import annotations

@@ -13,6 +13,14 @@ is written in ``[B, Lq, H, D]`` memory order and returned as its
 
 Bias contract (as on the TPU): ``None`` or a per-key additive bias of shape
 ``[B, 1, 1, Lk]``; any other shape raises.
+
+Gradients: the TPU kernel has no VJP, and neither has this kernel.  Where a
+gradient is asked for, ``FlashSDPA`` (a ``torch.autograd.Function``)
+launches the kernel forward and, in the backward, recomputes the plain
+version from the saved q, k and v and takes its autograd gradient; the bias
+(a text mask) takes none.  The gradient that arrives for the output may be
+non-contiguous (the output is a view), which the recomputation takes as it
+is.
 """
 
 from __future__ import annotations
@@ -98,16 +106,54 @@ def _launch(q, k, v, key_bias, scale: float):
     return o
 
 
+class FlashSDPA(torch.autograd.Function):
+    """``forward_impl(q, k, v, bias, scale)`` computes the output (the
+    kernel's launch on the card); the backward differentiates ``sdpa_plain``,
+    recomputed from the saved inputs, for q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale, forward_impl):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale = scale
+        return forward_impl(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, bias = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip((q, k, v), ctx.needs_input_grad)]
+            out = sdpa_plain(*inputs, bias=bias, scale=ctx.scale)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return (*(next(grads) if t.requires_grad else None for t in inputs),
+                None, None, None)
+
+
+def _kernel_forward(q, k, v, bias, scale):
+    return _launch(q, k, v, _key_bias(bias, q.shape[0], k.shape[2]), scale)
+
+
+def flash_sdpa_autograd(q, k, v, *, bias=None, scale=None, forward_impl=_kernel_forward):
+    """``FlashSDPA`` (``forward_impl`` defaults to the kernel; the CPU tests
+    pass the plain version)."""
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    return FlashSDPA.apply(q, k, v, bias, scale, forward_impl)
+
+
 def flash_sdpa(q, k, v, *, bias=None, scale=None):
     """q: [B,H,Lq,D], k/v: [B,H,Lk,D] -> [B,H,Lq,D] (a view of [B,Lq,H,D]
     memory on the card).
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
-    raises."""
+    raises, through ``FlashSDPA`` when a gradient is asked for."""
     b, _, _, d = q.shape
     key_bias = _key_bias(bias, b, k.shape[2])
     if scale is None:
         scale = 1.0 / (d ** 0.5)
     if q.device.type == "cpu":
         return sdpa_plain(q, k, v, bias=bias, scale=scale)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return flash_sdpa_autograd(q, k, v, bias=bias, scale=scale)
     return _launch(q, k, v, key_bias, scale)

@@ -7,6 +7,12 @@ thread-block cluster (every UNet site in bf16), with the statistics
 exchanged through distributed shared memory; two launches and one workspace
 otherwise.  Statistics are two-pass in fp32 and summed in a fixed order;
 its source note gives the boundary between the paths.
+
+Gradients: the TPU kernel has no VJP, and neither has this kernel.  Where a
+gradient is asked for, ``GroupNormSiLU`` (a ``torch.autograd.Function``)
+launches the kernel forward and, in the backward, recomputes the plain
+version from the saved inputs and takes its autograd gradient for x, scale
+and bias.
 """
 
 from __future__ import annotations
@@ -68,12 +74,49 @@ def _launch(params, x, num_groups: int, eps: float, silu: bool):
     return y
 
 
+class GroupNormSiLU(torch.autograd.Function):
+    """``forward_impl(params, x, num_groups, eps, silu)`` computes the output
+    (the kernel's launch on the card); the backward differentiates the plain
+    version, recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, silu, forward_impl):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.args = (num_groups, eps, silu)
+        return forward_impl({"scale": scale, "bias": bias}, x, num_groups, eps, silu)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, scale, bias = ctx.saved_tensors
+        num_groups, eps, silu = ctx.args
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip((x, scale, bias), ctx.needs_input_grad)]
+            y = group_norm_silu_plain({"scale": inputs[1], "bias": inputs[2]}, inputs[0],
+                                      num_groups, eps=eps, silu=silu)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, grad_out))
+        return (*(next(grads) if t.requires_grad else None for t in inputs),
+                None, None, None, None)
+
+
+def group_norm_silu_autograd(params, x, num_groups: int, *, eps: float = 1e-5,
+                             silu: bool = True, forward_impl=_launch):
+    """``GroupNormSiLU`` on ``params``' scale and bias (``forward_impl``
+    defaults to the kernel; the CPU tests pass the plain version)."""
+    return GroupNormSiLU.apply(x, params["scale"], params["bias"], num_groups, eps,
+                               silu, forward_impl)
+
+
 def fused_group_norm_silu(params, x, num_groups: int, *, eps: float = 1e-5,
                           silu: bool = True):
     """x: [B, ..., C] -> silu(group_norm(x)) (or group_norm(x), ``silu=False``).
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
-    raises."""
+    raises, through ``GroupNormSiLU`` when a gradient is asked for."""
     if x.device.type == "cpu":
         return group_norm_silu_plain(params, x, num_groups, eps=eps, silu=silu)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, params["scale"], params["bias"])):
+        return group_norm_silu_autograd(params, x, num_groups, eps=eps, silu=silu)
     return _launch(params, x, num_groups, eps, silu)

@@ -18,6 +18,11 @@ before their products; K, V, the biases, the scores and the softmax stay
 fp32.  A key whose bias is <= -1e8 (the text mask's -1e9) has a probability
 of exactly 0.0 in fp32 whenever its sample has a live key, so the kernel
 skips it.
+
+No gradient runs through the kernel: the decoder that calls it is frozen in
+stage 2, and the CUDA path raises on an input that requires one (the stage-1
+port brings its ``torch.autograd.Function``, whose backward differentiates
+the plain version as ``psg_tpu/ops/spatial_xattn.py::_fused_bwd`` does).
 """
 
 from __future__ import annotations
@@ -162,5 +167,10 @@ def fused_spatial_xattn(xn, residual, k, v, wq, bq, wp, bp, *, num_heads: int,
             xn, residual, split_heads(k, num_heads, compat_reshape),
             split_heads(v, num_heads, compat_reshape), wq, bq, wp, bp,
             key_bias=key_bias, scale=scale)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xn, residual, k, v, wq, bq, wp, bp)):
+        raise NotImplementedError(
+            "fused_spatial_xattn: the kernel has no gradient yet; run the frozen "
+            "decoder under torch.no_grad() (its autograd Function comes with stage 1)")
     return _launch(xn, residual, k, v, wq, bq, wp, bp, key_bias, scale, num_heads,
                    compat_reshape)

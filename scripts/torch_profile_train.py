@@ -1,0 +1,182 @@
+#!/usr/bin/env python3
+"""Where one full-width stage-2 training step of psg_tpu_torch spends its
+time on the card.
+
+    python3 scripts/torch_profile_train.py [--steps 3] [--trace PATH]
+
+Builds the stage-2 trainer at config/train_config.yaml's full width (bf16,
+UNet 320/640/1280/1280, BERT-base, full VAE, 215x215, batch 32) with random
+weights from the config's seed over 128 sprites made from a seed (in a
+temporary directory), takes one warm-up step, then for the whole step and
+for each of its parts (the forward to the loss: frozen text and VAE
+encoders, q_sample, the UNet; the backward; the optimizer and the EMA)
+prints one JSON line: host wall time ending in a sync (the mean of
+``--steps`` runs without the profiler, and the profiled run's), the summed
+device time of its kernels, their number, the device's idle share (1 -
+kernel time / wall), device time and kernel count by kernel family, the ten
+heaviest kernels, and the device time of the backward's recomputation of
+the plain GN+SiLU and flash attention: CUDA events around each autograd
+Function's backward (the script wraps them; the backward runs on the
+current stream, so the interval holds exactly its kernels), summed per
+step.  Then the step's samples/s and peak device memory.  Needs one CUDA
+card; imports no JAX.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "scripts"))
+
+from torch_profile_serve import family  # noqa: E402
+
+
+RECOMPUTE = defaultdict(list)   # Function name -> [(start, end) CUDA events]
+
+
+def time_backwards():
+    """Wrap GroupNormSiLU's and FlashSDPA's backward in CUDA events."""
+    from psg_tpu_torch.ops import flash_attention, fused_norm
+
+    for cls in (fused_norm.GroupNormSiLU, flash_attention.FlashSDPA):
+        def timed(ctx, grad, _orig=cls.backward, _name=cls.__name__):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            out = _orig(ctx, grad)
+            end.record()
+            RECOMPUTE[_name].append((start, end))
+            return out
+        cls.backward = staticmethod(timed)
+
+
+def measure(name, fn, reps, setup=None, trace=None):
+    """Wall (mean of ``reps`` runs, each after ``setup``) and one profiled
+    run.  ``fn`` takes what ``setup`` returns."""
+    walls, rec_ms, rec_calls = [], defaultdict(float), defaultdict(int)
+    for _ in range(reps):
+        arg = setup() if setup else None
+        torch.cuda.synchronize()
+        RECOMPUTE.clear()           # only this run's backwards
+        t = time.perf_counter()
+        fn(arg)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        for k, evs in RECOMPUTE.items():
+            rec_ms[k] += sum(s.elapsed_time(e) for s, e in evs)
+            rec_calls[k] += len(evs)
+    recomputed = {k: {"calls_per_run": rec_calls[k] // reps,
+                      "device_ms_per_run": rec_ms[k] / reps} for k in rec_ms}
+    arg = setup() if setup else None
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn(arg)
+        torch.cuda.synchronize()
+        wall_profiled = time.perf_counter() - t
+    if trace:
+        prof.export_chrome_trace(trace)
+    by_family, count_by_family = defaultdict(float), defaultdict(int)
+    kernels, launches, top = 0.0, 0, []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = evt.self_device_time_total
+        kernels += us
+        launches += evt.count
+        by_family[family(evt.key)] += us
+        count_by_family[family(evt.key)] += evt.count
+        top.append((us, evt.count, evt.key[:100]))
+    top.sort(reverse=True)
+    wall = sum(walls) / len(walls)
+    rec = {"part": name, "wall_ms": wall * 1e3, "walls_ms": [w * 1e3 for w in walls],
+           "wall_ms_profiled": wall_profiled * 1e3, "kernel_ms": kernels / 1e3,
+           "kernels": launches,
+           "device_idle_share": (1.0 - kernels / 1e6 / wall) if kernels else None,
+           "recomputed_backward": recomputed,
+           "by_family_ms": {k: v / 1e3 for k, v in sorted(by_family.items(),
+                                                          key=lambda kv: -kv[1])},
+           "by_family_kernels": dict(count_by_family),
+           "top": [{"ms": us / 1e3, "count": n, "kernel": k} for us, n, k in top[:10]]}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--steps", type=int, default=3, help="unprofiled runs per part")
+    ap.add_argument("--trace", help="write the whole step's chrome trace here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("torch_profile_train: needs a CUDA device")
+
+    from psg_tpu_torch import ops
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.core.config import load_config
+    from psg_tpu_torch.data.synthetic import write_sprite_corpus
+    from psg_tpu_torch.ops import cuda_build
+    from psg_tpu_torch.train.optim import ema_update
+    from psg_tpu_torch.train.stage2_diffusion import DiffusionTrainer
+
+    cuda_build.build_all(ops.KERNELS)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    with tempfile.TemporaryDirectory(prefix="profile_train_") as tmp:
+        csv, images = write_sprite_corpus(Path(tmp) / "corpus", n=128, seed=0, size=215)
+        (Path(tmp) / "exp").mkdir()
+        (Path(tmp) / "exp" / "vocab.txt").write_bytes(
+            (ROOT / "experiments" / "evidence_r5c_vae" / "vocab.txt").read_bytes())
+        cfg = load_config(ROOT / "config" / "train_config.yaml",
+                          [f"experiment_dir={Path(tmp) / 'exp'}", f"data.csv_path={csv}",
+                           f"data.image_dir={images}"])
+        tr = DiffusionTrainer(cfg, None, experiment_name="profile", device="cuda")
+        batch = tr._batch(next(iter(tr.train_loader)))
+        bs = batch["image"].shape[0]
+        print(json.dumps({"card": smi, "torch": torch.__version__, "batch": bs,
+                          "params": sum(t.numel() for t in tree.leaves(tr.state.params))}),
+              flush=True)
+        time_backwards()
+        tr._step(batch)                        # warm-up: cuDNN and cuBLAS pick kernels
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        st = tr.state
+        leaves = tree.leaves(st.params)
+
+        def forward(_):
+            return tr._noise_loss(st.params, tr.frozen, batch, st.rng,
+                                  dropout=tr._dropout(None))
+
+        step = measure(f"train step (batch {bs})", lambda _: tr._step(batch), args.steps,
+                       trace=args.trace)
+        measure("forward to the loss", forward, args.steps)
+        measure("backward", lambda loss: torch.autograd.grad(loss, leaves), args.steps,
+                setup=lambda: forward(None))
+
+        def grads():
+            return tr._grads(batch)[1]
+
+        def update(g):
+            tr.tx.update(st.params, g, st.opt_state)
+            if tr.ema_decay > 0:
+                ema_update(st.ema, st.params, tr.ema_decay)
+
+        measure("optimizer + EMA", update, args.steps, setup=grads)
+        print(json.dumps({"samples_per_s": bs / (step["wall_ms"] / 1e3),
+                          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                          "skipped_batches": tr.skipped_batches()}), flush=True)
+    print(smi, flush=True)
+
+
+if __name__ == "__main__":
+    main()

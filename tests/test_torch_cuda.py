@@ -324,3 +324,106 @@ def test_each_wrapper_call_counts_one_launch(card):
     torch.cuda.synchronize()
     assert ops.launch_counts() == {"group_norm_silu": 1, "flash_attention": 2,
                                    "spatial_xattn": 1}
+
+
+# ---------------------------------------------------------------------------
+# gradients: the kernels forward, the plain versions' autograd backward
+# ---------------------------------------------------------------------------
+
+def _grads(fn, inputs, gy):
+    inputs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    out = fn(*inputs)
+    out.backward(gy)
+    return [out.detach()] + [t.grad for t in inputs]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,c", [(32, 729, 320), (32, 196, 640), (32, 16, 2560)])
+def test_group_norm_silu_gradients(card, dtype, b, s, c):
+    """GroupNormSiLU on the kernel against autograd of the plain version at
+    the UNet's training shapes (batch 32): outputs within the kernel's
+    tolerance; gradients from the same plain recomputation, so the same
+    tolerance holds with room."""
+    x = _randn((b, s, c), 0, card, dtype, scale=2.0, shift=0.3)
+    scale, bias = _randn((c,), 1, card, scale=0.3, shift=1.0), _randn((c,), 2, card, scale=0.1)
+    gy = _randn((b, s, c), 3, card, dtype)
+    ops.reset_launch_counts()
+    got = _grads(lambda x, s_, b_: ops.group_norm_silu({"scale": s_, "bias": b_}, x, 32),
+                 (x, scale, bias), gy)
+    assert ops.launch_counts()["group_norm_silu"] == 1
+    ref = _grads(lambda x, s_, b_: fused_norm.group_norm_silu_plain(
+        {"scale": s_, "bias": b_}, x, 32), (x, scale, bias), gy)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and torch.isfinite(g.float()).all()
+        _close(g, r, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,lq,lk,d,masked", [
+    (32, 4, 196, 196, 160, False),   # UNet 14^2 self-attention
+    (32, 4, 196, 128, 160, True),    # ... cross-attention on the text keys
+    (32, 4, 49, 128, 320, True),     # UNet 7^2 cross-attention
+])
+def test_flash_attention_gradients(card, dtype, b, h, lq, lk, d, masked):
+    """FlashSDPA on the kernel (output a view of [B,Lq,H,D] memory) against
+    autograd of sdpa_plain, with the incoming gradient as the heads' merge
+    hands it back (non-contiguous); q, k, v get gradients, the bias none."""
+    q = _randn((b, h, lq, d), 0, card, dtype)
+    k, v = _randn((b, h, lk, d), 1, card, dtype), _randn((b, h, lk, d), 2, card, dtype)
+    bias = None
+    if masked:
+        keep = torch.ones(b, lk, device=card, dtype=torch.bool)
+        keep[-1, lk // 3:] = False
+        bias = torch.where(keep, 0.0, -1e9).float()[:, None, None, :]
+    gy = _randn((b, lq, h, d), 3, card, dtype).transpose(1, 2)
+    got = _grads(lambda q, k, v: ops.sdpa(q, k, v, bias=bias), (q, k, v), gy)
+    ref = _grads(lambda q, k, v: flash_attention.sdpa_plain(q, k, v, bias=bias,
+                                                            scale=d ** -0.5), (q, k, v), gy)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape and torch.isfinite(g.float()).all()
+        _close(g, r, dtype)
+
+
+def test_unet_gradient_reaches_every_parameter(card):
+    """A tiny UNet on the card (fp32, TF32 off), through both kernels: every
+    parameter gets a finite, non-zero gradient, within 1e-3 * max|g| + 1e-6
+    of the same UNet's on the CPU (plain versions; cuDNN and CPU
+    convolutions sum in other orders)."""
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.models.unet import UNetSpec, unet_apply, unet_init
+
+    spec = UNetSpec(latent_dim=4, text_dim=16, time_emb_dim=16, channels=(16, 24, 32, 32),
+                    spatial=(9, 5, 3, 2), attn_dropout=0.0)
+    params = unet_init(torch.Generator().manual_seed(0), spec)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(2, 9, 9, 4).astype(np.float32))
+    t = torch.tensor([3, 700])
+    text = torch.from_numpy(rng.randn(2, 6, 16).astype(np.float32))
+    mask = torch.tensor([[1, 1, 1, 1, 1, 1], [1, 1, 0, 0, 0, 0]])
+    w = torch.from_numpy(rng.randn(2, 9, 9, 4).astype(np.float32))
+
+    def grads(dev):
+        p = tree.map(lambda a: a.to(dev).requires_grad_(True), params)
+        out = unet_apply(p, x.to(dev), t.to(dev), text.to(dev), spec, text_mask=mask.to(dev))
+        g = torch.autograd.grad((out * w.to(dev)).sum(), tree.leaves(p))
+        return [a.cpu() for a in g]
+
+    ops.reset_launch_counts()
+    got = grads(card)
+    counts = ops.launch_counts()
+    assert counts["group_norm_silu"] > 0 and counts["flash_attention"] > 0
+    for (path, _), g, r in zip(tree.items(params), got, grads("cpu")):
+        assert torch.isfinite(g).all() and g.abs().max() > 0, path
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-3 * float(r.abs().max()) + 1e-6,
+                                   msg=path)
+
+
+def test_spatial_xattn_raises_when_a_gradient_is_asked_for(card):
+    """Stage 2 never differentiates the spatial kernel (the decoder is
+    frozen); an input that requires grad raises instead of being detached."""
+    operands = list(_spatial_operands(card, torch.float32, 1, 16, 32, 8))
+    operands[0] = operands[0].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no gradient"):
+        spatial_xattn.fused_spatial_xattn(*operands[:8], num_heads=8)
+    with torch.no_grad():
+        spatial_xattn.fused_spatial_xattn(*operands[:8], num_heads=8)

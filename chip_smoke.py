@@ -58,15 +58,34 @@ prints one JSON line per phase:
                 gradients, the parameters and EMA after 3 steps.  (c)
                 config/train_config.yaml at full width (batch 32) on 128
                 sprites made from a seed, with the native augmentation engine
-                (it fails if that did not build): the trainer's train_epoch
-                (3 steps), validate, generate_samples (DDIM 10) and
-                save_checkpoint_fast (the light bf16 best); then the hub
-                resolves that checkpoint and the serving generator serves one
-                DPM-10 request from it.  It reports the step wall after the
+                (it fails if that did not build), the frozen VAE and text
+                encoder from phase 7's stage-1 checkpoint: the trainer's
+                train_epoch (3 steps), validate, generate_samples (DDIM 10)
+                and save_checkpoint_fast (the light bf16 best); then the hub
+                resolves both checkpoints and the serving generator serves one
+                DPM-10 request from them.  It reports the step wall after the
                 first step, samples/s, peak memory, the losses and the
                 launches of each part against ``predicted_train_launches``
                 (forward launches only: the backward launches no kernel).
-In phases 4-6 images must be finite and of the right shape, a seed must
+7. ``stage1``   stage-1 training, run before phase 6c so that its stage 2
+                trains from the stage-1 checkpoint.  (a) The spatial block
+                through ``SpatialXattn`` (kernel forward, the fp32 body
+                recomputed in chunks of rows backward) against plain autograd
+                of the fp32 body at the decoder's two 215^2 sites at batch
+                32, bf16 and fp32, prompt masks and cold heads; the main case
+                timed against its plain version and its bound.  (b) A tiny
+                stage-1 trainer on the card against one on the CPU (fp32), 3
+                steps: losses, the first step's gradients, the parameters.
+                (c) config/train_config.yaml at full width (batch 32, 215^2,
+                BERT-base 'minimal', VGG16 perceptual loss) on the 128
+                sprites of phase 6c: train_epoch (3 steps), validate,
+                generate_samples (the prior and reconstruction grids) and
+                save_checkpoint; step wall, samples/s, peak memory, the
+                backward's chunk of rows, and launches against
+                ``predicted_stage1_launches``.
+Phase 6c runs after phase 7: its frozen VAE and text encoder come from
+phase 7's checkpoint, and serving resolves the pair.
+In phases 4-7 images must be finite and of the right shape, a seed must
 repeat its image, and every request's kernel launches must equal the count
 the model's structure predicts (``predicted_launches``); each phase's counts
 are set to 0 just before its requests and read just after them.
@@ -75,7 +94,8 @@ Phase 2 holds GroupNorm+SiLU at the decoder's and the UNet's sites and, at
 batch 1 and 4, at the VAE encoder's (107^2x32 with one channel a group,
 53^2x64, 27^2x128).  Then the card's name and power limit, the ``kernels``
 line (each kernel at its heaviest main-path shape, with its launches summed
-over phases 4 and 5), and last
+over phases 4-7, and the spatial kernel's gradient: its Function's forward
+and backward at phase 7a's main case, launched in phase 7c's steps), and last
 ``{"ok": true, "device": {...}}``.  ``--json PATH`` also writes every
 phase's record to PATH.
 """
@@ -523,10 +543,12 @@ def predicted_launches(gen, n_unet_evals, *, text_encodes=1, encodes=0, decodes=
     from psg_tpu_torch.models.vae import _DEC_BLOCKS, _ENC_DOWN, _ENC_RES, width_scale
     from psg_tpu_torch.ops.spatial_xattn import CHANNELS
 
-    spec = gen.spec
-    nlvl, bpl = len(spec.channels), spec.blocks_per_level
-    unet_gn = 2 * (2 * nlvl * bpl + 1) + 1
-    unet_attn = 2 * (2 * bpl * sum(spec.attention_levels) + 1)
+    unet_gn = unet_attn = 0
+    if n_unet_evals:
+        spec = gen.spec
+        nlvl, bpl = len(spec.channels), spec.blocks_per_level
+        unet_gn = 2 * (2 * nlvl * bpl + 1) + 1
+        unet_attn = 2 * (2 * bpl * sum(spec.attention_levels) + 1)
     enc_gn = 2 * (len(_ENC_DOWN) + len(_ENC_RES))
     widths = [width_scale(cout, gen.cfg.model.vae_width_scale)
               for _cin, cout, _up in _DEC_BLOCKS]
@@ -958,28 +980,22 @@ def predicted_train_launches(trainer):
     return predicted_launches(trainer, 1, text_encodes=1, encodes=1, decodes=0)
 
 
-def phase_train_full_width(tmp):
-    """(c) config/train_config.yaml at full width on 128 sprites: the
-    trainer's train_epoch (3 steps at batch 32), validate, generate_samples
-    (DDIM 10 steps) and save_checkpoint_fast (the light bf16 best); then the
-    serving generator resolves that checkpoint through the hub and serves one
+def phase_train_full_width(exp, corpus, vae_checkpoint):
+    """(c) config/train_config.yaml at full width on 128 sprites, its frozen
+    VAE and text encoder from phase 7's stage-1 checkpoint: the trainer's
+    train_epoch (3 steps at batch 32), validate, generate_samples (DDIM 10
+    steps) and save_checkpoint_fast (the light bf16 best); then the serving
+    generator resolves both checkpoints through the hub and serves one
     DPM-10 request.  Counts are set to 0 before train_epoch and read after
     the request."""
-    import shutil
-
     from psg_tpu_torch import ops
     from psg_tpu_torch.core import tree
     from psg_tpu_torch.core.config import load_config
     from psg_tpu_torch.data import native
-    from psg_tpu_torch.data.synthetic import write_sprite_corpus
     from psg_tpu_torch.serve import hub
     from psg_tpu_torch.serve.generator import PokemonGenerator
     from psg_tpu_torch.train.stage2_diffusion import DiffusionTrainer
 
-    corpus = write_sprite_corpus(Path(tmp) / "corpus128", n=128, seed=0, size=215)
-    exp = Path(tmp) / "exp"
-    exp.mkdir()
-    shutil.copy(VOCAB, exp / "vocab.txt")   # the committed vocabulary, as in phases 4-5
     cfg = load_config(CONFIG, [f"experiment_dir={exp}", f"data.csv_path={corpus[0]}",
                                f"data.image_dir={corpus[1]}", "extra.sample_steps=10"])
     if (cfg.model.compute_dtype, cfg.data.image_size, cfg.data.batch_size) != (
@@ -989,7 +1005,7 @@ def phase_train_full_width(tmp):
         fail("the native augmentation engine did not build: the loader would switch "
              "engines and change every augmented batch")
     t0 = time.perf_counter()
-    trainer = DiffusionTrainer(cfg, None, experiment_name="smoke", device="cuda")
+    trainer = DiffusionTrainer(cfg, vae_checkpoint, experiment_name="smoke", device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     if len(trainer.train_loader) != FULL_STEPS:
@@ -1044,8 +1060,9 @@ def phase_train_full_width(tmp):
     torch.cuda.empty_cache()
 
     vae_ckpt, diff_ckpt = hub.resolve_checkpoints(cfg, "smoke", allow_hub=False)
-    if (vae_ckpt, diff_ckpt) != (None, str(best)):
-        fail(f"hub resolved {vae_ckpt}, {diff_ckpt}, not the trainer's {best}")
+    if (vae_ckpt, diff_ckpt) != (str(vae_checkpoint), str(best)):
+        fail(f"hub resolved {vae_ckpt}, {diff_ckpt}, not the trainers' {vae_checkpoint}, "
+             f"{best}")
     t0 = time.perf_counter()
     gen = PokemonGenerator(cfg, vae_checkpoint=vae_ckpt, diffusion_checkpoint=diff_ckpt,
                            tokenizer=tokenizer, sampler="dpmpp", device="cuda")
@@ -1064,9 +1081,10 @@ def phase_train_full_width(tmp):
         fail(f"{skipped} skipped steps")
     if not changed:
         fail("train_epoch left the parameters as they were")
-    if gen.loaded != "unet-only" or img.shape != (215, 215, 3) or not np.isfinite(img).all():
+    if gen.loaded != "pair" or img.shape != (215, 215, 3) or not np.isfinite(img).all():
         fail(f"serving from the trained checkpoint: loaded={gen.loaded}, image {img.shape}")
     steady = float(np.mean(step_s[1:]))
+    loaded = gen.loaded
     del gen
     torch.cuda.empty_cache()
     return {"params": n_params, "init_s": init_s, "step_s": step_s,
@@ -1077,9 +1095,353 @@ def phase_train_full_width(tmp):
             "peak_mem_gb": peak / 1e9, "skipped_batches": skipped,
             "watched_leaves_changed": f"{changed}/{len(watch)}",
             "save_best_light_s": save_s, "checkpoint_gb": ckpt_gb,
-            "serve_load_s": load_s, "serve_dpm10_s": serve_s, "loaded": "unet-only",
+            "vae_checkpoint": str(vae_checkpoint), "serve_load_s": load_s,
+            "serve_dpm10_s": serve_s, "loaded": loaded,
             "predicted_per_step": per_step, "launches_by_part": got,
             "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: stage-1 training (the VAE and text encoder)
+# ---------------------------------------------------------------------------
+
+# the decoder's two fused sites at the full-width batch: (name, C, cold, mask)
+SPATIAL_GRAD_SITES = (("vae 215^2 C64 prompt mask", 64, False, "prompt"),
+                      ("vae 215^2 C64 cold heads", 64, True, "third"),
+                      ("vae 215^2 C32 prompt mask", 32, False, "prompt"),
+                      ("vae 215^2 C32 cold heads", 32, True, "third"))
+SPATIAL_GRAD_CASE = "vae 215^2 C32 prompt mask"   # the kernels line's gradient entry
+# The training gradient cases' tolerance (atol + rtol |ref|), plus
+# max_rtol * max|ref| for the sums over 32 x 46225 rows (k, v, Wq, bq, Wp,
+# bp): the Function sums them over chunks of rows, the reference over slices
+# of the batch, and their fp32 summation noise scales with the largest
+# element (on an H100 both are within 5e-6 max|g| of a float64 reference,
+# and bit-equal in one chunk: tests/test_torch_cuda.py).
+SPATIAL_GRAD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4, max_rtol=1e-5),
+                    torch.bfloat16: dict(rtol=2e-2, atol=2e-2, max_rtol=1e-4)}
+
+
+def _spatial_grad_ratio(g, r, dtype):
+    """The worst |g - r| / bound over a gradient (<= 1 passes)."""
+    tol = SPATIAL_GRAD_TOL[dtype]
+    g, r = g.float(), r.float()
+    bound = tol["atol"] + tol["rtol"] * r.abs() + tol["max_rtol"] * r.abs().max()
+    return float(((g - r).abs() / bound).max())
+S1_BATCH = 32
+
+
+def _spatial_grad_operands(b, c, cold, mask, dtype, seed=0):
+    """The fused block's operands at the 215^2 sites: random activations and
+    weights; ``cold`` scales Q by 120 (head logits in the hundreds); ``mask``
+    'prompt' keeps the four PROMPTS' keys in turn, 'third' a third of the
+    last sample's."""
+    s, hw = 128, 215
+    if mask == "prompt":
+        keep = prompt_keys().repeat(b // 4, 1)
+    else:
+        keep = torch.ones(b, s, device="cuda", dtype=torch.bool)
+        keep[-1, s // 3:] = False
+    ops_ = [_randn((b, hw * hw, c), seed, dtype), _randn((b, hw * hw, c), seed + 1, dtype),
+            _randn((b, s, c), seed + 2), _randn((b, s, c), seed + 3),
+            _randn((c, c), seed + 4, scale=c ** -0.5 * (120.0 if cold else 1.0)).to(dtype),
+            _randn((c,), seed + 6, scale=0.1),
+            _randn((c, c), seed + 5, scale=c ** -0.5).to(dtype), _randn((c,), seed + 7,
+                                                                        scale=0.1)]
+    bias = torch.where(keep, 0.0, -1e9).float()
+    return ops_, bias, keep, _randn((b, hw * hw, c), seed + 8, dtype)
+
+
+def _spatial_fp32_grads(operands, gy, key_bias, batch_chunk=4):
+    """Gradients of the block's fp32 body by plain autograd over
+    ``batch_chunk`` samples at a time (the samples are independent; Wq, bq,
+    Wp and bp sum over them), each cast to its input's dtype."""
+    from psg_tpu_torch.ops import spatial_xattn as sx
+
+    b, c = operands[0].shape[0], operands[0].shape[-1]
+    per, shared = [[] for _ in range(4)], None
+    for lo in range(0, b, batch_chunk):
+        # the shared weights as fp32 leaves: their sums over the slices stay
+        # fp32 until the one cast at the end (the body upcasts them anyway)
+        xs = [(t[lo:lo + batch_chunk] if i < 4 else t.float()).detach().clone()
+              .requires_grad_(True) for i, t in enumerate(operands)]
+        out = sx.spatial_xattn_fp32(*xs, num_heads=8, key_bias=key_bias[lo:lo + batch_chunk],
+                                    scale=(c // 8) ** -0.5)
+        g = torch.autograd.grad(out, xs, gy[lo:lo + batch_chunk].float())
+        for i in range(4):
+            per[i].append(g[i])
+        shared = list(g[4:]) if shared is None else [a + x for a, x in zip(shared, g[4:])]
+    return [g.to(t.dtype) for g, t in zip([torch.cat(p) for p in per] + shared, operands)]
+
+
+def _event_ms(fn, reps=3):
+    """Median device time of ``fn`` (CUDA events around one call)."""
+    times = []
+    for _ in range(reps + 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times[1:]))
+
+
+def phase_stage1_gradients():
+    """(a) SpatialXattn on the kernel (forward) and its chunked fp32
+    recomputation (backward) against plain autograd of the fp32 body, at the
+    decoder's two 215^2 sites at batch 32, bf16 and fp32, prompt masks and
+    cold heads.  The main case is also timed: the Function's forward and
+    backward, the plain version's (autograd of the bf16-rounding plain
+    block, four samples at a time), against the bound of its bytes,
+    operations and live-key exponentials."""
+    from psg_tpu_torch.ops import spatial_xattn as sx
+
+    cases, timing = [], None
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).replace("torch.", "")
+        for name, c, cold, mask in SPATIAL_GRAD_SITES:
+            operands, bias, keep, gy = _spatial_grad_operands(S1_BATCH, c, cold, mask, dtype)
+
+            def function(ops_=operands, bias=bias, gy=gy):
+                xs = [t.detach().requires_grad_(True) for t in ops_]
+                out = sx.fused_spatial_xattn(*xs, num_heads=8,
+                                             text_bias=bias[:, None, None, :])
+                return out, torch.autograd.grad(out, xs, gy)
+
+            out, got = function()
+            ref = _spatial_fp32_grads(operands, gy, bias)
+            torch.cuda.synchronize()
+            errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(got, ref)]
+            ratios = [_spatial_grad_ratio(g, r, dtype) for g, r in zip(got, ref)]
+            ok = all(torch.isfinite(g.float()).all() and g.dtype == t.dtype
+                     for g, t in zip(got, operands)) and max(ratios) <= 1.0
+            names = ("xn", "residual", "k", "v", "wq", "bq", "wp", "bp")
+            rec = {"name": f"{name} b{S1_BATCH}", "dtype": dname, "max_abs_err": max(errs),
+                   "max_abs_err_by_operand": dict(zip(names, errs)),
+                   "err_over_bound_by_operand": dict(zip(names, ratios)),
+                   "max_ref_by_operand": dict(zip(names, (r.float().abs().max().item()
+                                                          for r in ref))),
+                   **SPATIAL_GRAD_TOL[dtype], "ok": bool(ok)}
+            if name == SPATIAL_GRAD_CASE and dtype == torch.bfloat16:
+                def plain(ops_=operands, bias=bias, gy=gy):
+                    for lo in range(0, S1_BATCH, 4):
+                        xs = [(t[lo:lo + 4] if i < 4 else t).detach().requires_grad_(True)
+                              for i, t in enumerate(ops_)]
+                        y = sx.spatial_xattn_plain(
+                            xs[0], xs[1], sx.split_heads(xs[2], 8, False),
+                            sx.split_heads(xs[3], 8, False), *xs[4:],
+                            key_bias=bias[lo:lo + 4], scale=(c // 8) ** -0.5)
+                        torch.autograd.grad(y, xs, gy[lo:lo + 4])
+
+                live = keep.sum(1).clamp_min(1).float()
+                pix = 215 * 215
+                # forward: xn, residual in, out; backward: xn and the gradient
+                # in, dxn and dresidual out; k, v, weights and their gradients
+                moved = 7 * nbytes(operands[0]) + 2 * nbytes(*operands[2:]) + nbytes(bias)
+                # forward 4C^2 + 4SC a pixel; the backward recomputes it and
+                # takes about twice that again
+                flops = 4 * pix * float((4 * c * c + 4 * live * c).sum())
+                exps = 2 * pix * 8 * float(live.sum())     # forward and recomputation
+                b_ms, b_by, b_parts = bound(moved, flops, torch.bfloat16, exps)
+                timing = {"ms": _event_ms(lambda: function()),
+                          "plain_ms": _event_ms(plain), "bound_ms": b_ms, "bound_by": b_by,
+                          "bound_parts_ms": b_parts, "max_abs_err": max(errs),
+                          "backward_rows": sx.backward_rows(S1_BATCH, 8, 128)}
+            cases.append(rec)
+            del operands, out, got, ref
+            torch.cuda.empty_cache()
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        fail("SpatialXattn's gradient disagrees with the fp32 body's: " + "; ".join(
+            f"{c['name']} {c['dtype']} err {c['max_abs_err']:.3g}" for c in bad))
+    return {"cases": cases, "main_case": timing}
+
+
+S1_GRAD_RTOL, S1_LOSS_RTOL, S1_PARAM_ATOL = 1e-3, 1e-4, 1e-4
+
+
+def _stage1_tiny_config(exp, corpus):
+    cfg = tiny_config()
+    cfg.experiment_dir = str(exp)
+    cfg.data.csv_path, cfg.data.image_dir = map(str, corpus)
+    cfg.data.batch_size = 2
+    cfg.data.num_workers = 2
+    return cfg
+
+
+def phase_stage1_card_vs_cpu(tmp):
+    """(b) One tiny stage-1 trainer on the CPU (plain versions) and one on
+    the card (kernels), the same parameters, VGG16, batches and
+    reparameterize noises, fp32: every step's loss; the first step's
+    gradients; the parameters after 3 steps, where the first step's
+    gradient is determined (|g| at least 100 times the gradients' bound:
+    Adam's first update is lr * g / (|g| + 1e-8), so a leaf whose gradient
+    is rounding noise on both devices, a conv bias a GroupNorm follows,
+    moves by +-lr on either)."""
+    from psg_tpu_torch import ops
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.data.synthetic import write_sprite_corpus
+    from psg_tpu_torch.models import bridge
+    from psg_tpu_torch.train.stage1_vae import VAETrainer
+
+    corpus = write_sprite_corpus(Path(tmp) / "s1_tiny_corpus", n=12, seed=0, size=64)
+    cfg = _stage1_tiny_config(Path(tmp) / "s1_tiny_exp", corpus)
+    cpu = VAETrainer(cfg, experiment_name="cpu", device="cpu")
+    card = VAETrainer(cfg, experiment_name="card", device="cuda")
+    card.state = card._fresh_state(bridge.fit(card.state.params, cpu.state.params), step=0,
+                                   rng=card.state.rng)
+    card.vgg_params = bridge.fit(card.vgg_params, cpu.vgg_params)
+    rs = np.random.RandomState(0)
+    batches = [next(iter(cpu.train_loader)) for _ in range(3)]
+    lat = (cfg.data.batch_size, cpu.latent_size, cpu.latent_size, cfg.model.latent_dim)
+    draws = [{"rep_noise": torch.from_numpy(rs.randn(*lat).astype(np.float32))}
+             for _ in batches]
+    klw = cpu.kl_weight(1)
+    ops.reset_launch_counts()
+    parts_cpu, g_cpu = cpu._grads(cpu._batch(batches[0]), klw, draws[0])
+    parts_card, g_card = card._grads(card._batch(batches[0]), klw, draws[0])
+    counts = ops.launch_counts()
+    grad_err, determined = 0.0, []
+    for (path, r), g in zip(tree.items(g_cpu), tree.leaves(g_card)):
+        err = (g.float().cpu() - r).abs().max().item()
+        bound_ = S1_GRAD_RTOL * r.abs().max().item() + 1e-6
+        grad_err = max(grad_err, err / bound_)
+        if not err <= bound_:
+            fail(f"stage 1 card vs CPU: gradient {path} max|dg| {err:.3g} > {bound_:.3g}")
+        determined.append(r.abs() >= 100 * (1e-4 * r.abs().max() + 1e-7))
+    losses = [(float(parts_cpu["total_loss"]), float(parts_card["total_loss"]))]
+    cpu._apply_update(parts_cpu, g_cpu, klw)
+    card._apply_update(parts_card, g_card, klw)
+    for batch, d in zip(batches[1:], draws[1:]):
+        a = cpu._step(cpu._batch(batch), klw, d)
+        b = card._step(card._batch(batch), klw, d)
+        losses.append((float(a["total_loss"]), float(b["total_loss"])))
+    loss_rel = max(abs(b - a) / abs(a) for a, b in losses)
+    if not loss_rel <= S1_LOSS_RTOL:
+        fail(f"stage 1 card vs CPU: loss rel diff {loss_rel:.3g} > {S1_LOSS_RTOL}: {losses}")
+    param_err = 0.0
+    for a, r, m in zip(tree.leaves(card.state.params), tree.leaves(cpu.state.params),
+                       determined):
+        d = (a.detach().cpu() - r.detach())[m].abs()
+        param_err = max(param_err, d.max().item() if d.numel() else 0.0)
+    if not param_err <= S1_PARAM_ATOL:
+        fail(f"stage 1 card vs CPU: params after 3 steps {param_err:.3g} > {S1_PARAM_ATOL}")
+    if min(counts.values()) == 0:
+        fail(f"stage 1 card vs CPU: a kernel was not launched: {counts}")
+    return {"losses_cpu_card": losses, "loss_rel": loss_rel, "loss_rtol": S1_LOSS_RTOL,
+            "grad_err_over_bound": grad_err, "grad_rtol": S1_GRAD_RTOL,
+            "params_after_3_steps_max_abs_determined": param_err,
+            "params_atol": S1_PARAM_ATOL, "first_step_launches": counts}
+
+
+def predicted_stage1_launches(trainer):
+    """Forward launches of one stage-1 step or validation batch: a text
+    encode, a VAE encode and a decode (the backward launches no kernel)."""
+    return predicted_launches(trainer, 0, text_encodes=1, encodes=1, decodes=1)
+
+
+def phase_stage1_full_width(exp, corpus):
+    """(c) config/train_config.yaml at full width (bf16, BERT-base 'minimal',
+    the full VAE with VGG16 perceptual loss, 215x215, text_len 128, batch
+    32) on 128 sprites: train_epoch (3 steps), validate, generate_samples
+    (the prior and the reconstruction grids) and save_checkpoint (the best,
+    a full state, which phase 6c's stage 2 then trains from).  Counts are
+    set to 0 before train_epoch and read after generate_samples."""
+    from psg_tpu_torch import ops
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.core.config import load_config
+    from psg_tpu_torch.ops import spatial_xattn as sx
+    from psg_tpu_torch.train.stage1_vae import VAETrainer
+
+    cfg = load_config(CONFIG, [f"experiment_dir={exp}", f"data.csv_path={corpus[0]}",
+                               f"data.image_dir={corpus[1]}"])
+    if (cfg.model.compute_dtype, cfg.data.image_size, cfg.data.batch_size,
+            cfg.model.bert_finetune_strategy) != ("bfloat16", 215, S1_BATCH, "minimal"):
+        fail(f"{CONFIG.name} is not the full-width bf16 batch-32 configuration")
+    t0 = time.perf_counter()
+    trainer = VAETrainer(cfg, experiment_name="smoke", device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if len(trainer.train_loader) != FULL_STEPS:
+        fail(f"the full-width epoch has {len(trainer.train_loader)} steps, not {FULL_STEPS}")
+    leaves = tree.leaves(trainer.state.params)
+    labels = trainer.tx.labels
+    n_params = {g: sum(t.numel() for t, lab in zip(leaves, labels) if lab == g)
+                for g in ("vae", "text", "frozen")}
+    watch = [t.detach().clone() for t in leaves[::29]]
+
+    step_s, step_loss = [], []
+    orig_step = trainer._step
+
+    def timed_step(batch, kl_weight, draws=None):
+        t = time.perf_counter()
+        parts = orig_step(batch, kl_weight, draws)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        step_loss.append(float(parts["total_loss"]))
+        return parts
+
+    trainer._step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()          # this path's counted run starts here
+    per_step = predicted_stage1_launches(trainer)
+    prior = predicted_launches(trainer, 0, text_encodes=1, encodes=0, decodes=1)
+    want = {"train_epoch": {k: FULL_STEPS * v for k, v in per_step.items()},
+            "validate": {k: len(trainer.val_loader) * v for k, v in per_step.items()},
+            "generate_samples": {k: prior[k] + per_step[k] for k in prior}}
+    got = {}
+
+    def part(name, fn):
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        got[name] = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        return out, time.perf_counter() - t
+
+    stats, epoch_s = part("train_epoch", lambda: trainer.train_epoch(0))
+    peak_train = torch.cuda.max_memory_allocated()
+    val, val_s = part("validate", lambda: trainer.validate(0))
+    grids, sample_s = part("generate_samples", lambda: trainer.generate_samples(0))
+    launches = ops.launch_counts()     # ... and ends here
+    t0 = time.perf_counter()
+    if not trainer.save_checkpoint(0, val):
+        fail("save_checkpoint wrote no best checkpoint")
+    save_s = time.perf_counter() - t0
+    best = trainer.ckpt.best_path
+    for name in want:
+        if got[name] != want[name]:
+            fail(f"stage 1 {name}: kernel launches {got[name]} != predicted {want[name]}")
+    skipped = trainer.skipped_batches()
+    changed = sum(not torch.equal(a, b.detach()) for a, b in zip(
+        watch, tree.leaves(trainer.state.params)[::29]))
+    if not (np.isfinite(step_loss).all() and np.isfinite(stats["total_loss"])
+            and np.isfinite(val)):
+        fail(f"stage 1: non-finite loss: steps {step_loss}, val {val}")
+    if skipped:
+        fail(f"stage 1: {skipped} skipped steps")
+    if not changed:
+        fail("stage 1: train_epoch left the parameters as they were")
+    if not all(p.exists() for p in grids):
+        fail(f"stage 1: sample grids missing: {grids}")
+    steady = float(np.mean(step_s[1:]))
+    rec = {"params": n_params, "init_s": init_s, "step_s": step_s,
+           "step_wall_after_first_s": steady, "samples_per_s": S1_BATCH / steady,
+           "epoch_s": epoch_s, "step_loss": step_loss,
+           "train": {k: stats[k] for k in ("total_loss", "reconstruction_loss",
+                                           "perceptual_loss", "kl_loss", "grad_norm")},
+           "val_loss": val, "validate_s": val_s, "generate_samples_s": sample_s,
+           "grids": [p.name for p in grids], "peak_mem_train_gb": peak_train / 1e9,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "spatial_backward_rows": sx.backward_rows(S1_BATCH, 8, cfg.data.text_len),
+           "skipped_batches": skipped, "watched_leaves_changed": f"{changed}/{len(watch)}",
+           "save_checkpoint_s": save_s, "checkpoint": str(best),
+           "checkpoint_gb": best.stat().st_size / 1e9, "predicted_per_step": per_step,
+           "launches_by_part": got, "launches": launches}
+    del trainer
+    torch.cuda.empty_cache()
+    return rec
 
 
 def _leaves(tree):
@@ -1185,11 +1547,25 @@ def main(argv=None):
         t = time.perf_counter()
         grads = phase_train_gradients()
         tiny = phase_train_card_vs_cpu(tmp)
+        t6 = time.perf_counter() - t
+        corpus = write_sprite_corpus(Path(tmp) / "corpus128", n=128, seed=0, size=215)
+        exp = Path(tmp) / "exp"
+        exp.mkdir()
+        # the committed vocabulary, as in phases 4-5; both stages resolve it
+        (exp / "vocab.txt").write_bytes(VOCAB.read_bytes())
+        t = time.perf_counter()
+        s1_grads = phase_stage1_gradients()
+        s1_tiny = phase_stage1_card_vs_cpu(tmp)
         t_full = time.perf_counter()
-        full = phase_train_full_width(tmp)
+        s1 = phase_stage1_full_width(exp, corpus)
+        emit("stage1", {"card": card, "gradients": s1_grads, "card_vs_cpu": s1_tiny,
+                        "full_width": s1, "full_width_seconds": time.perf_counter() - t_full,
+                        "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        full = phase_train_full_width(exp, corpus, s1["checkpoint"])
         emit("train", {"card": card, "gradients": grads, "card_vs_cpu": tiny,
-                       "full_width": full, "full_width_seconds": time.perf_counter() - t_full,
-                       "seconds": time.perf_counter() - t})
+                       "full_width": full, "full_width_seconds": time.perf_counter() - t,
+                       "seconds": t6 + time.perf_counter() - t})
 
     by_name = {(r["kernel"], r["name"], r["dtype"]): r for r in results}
     kernels = []
@@ -1198,11 +1574,21 @@ def main(argv=None):
         kernels.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaces, "shape": case, "dtype": "bfloat16",
                         "launches": (serve["launches"][kname] + paths["launches"][kname]
-                                     + full["launches"][kname]),
+                                     + s1["launches"][kname] + full["launches"][kname]),
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "composite_ms": r["composite_ms"]})
+    g = s1_grads["main_case"]
+    kernels.append({"name": "spatial_xattn_grad", "route": "cuda",
+                    "source": "psg_tpu_torch/ops/spatial_xattn.py",
+                    "replaces": "psg_tpu/ops/spatial_xattn.py:154",
+                    "shape": f"{SPATIAL_GRAD_CASE} b{S1_BATCH}, forward and backward",
+                    "dtype": "bfloat16",
+                    "launches": s1["launches_by_part"]["train_epoch"]["spatial_xattn"],
+                    "max_abs_err": g["max_abs_err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
+                    "bound_ms": g["bound_ms"], "bound_by": g["bound_by"], "library_ms": None,
+                    "backward_rows": g["backward_rows"]})
     REPORT["total_s"] = time.perf_counter() - t_start
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

@@ -17,8 +17,8 @@ import torch
 
 
 def _is_list_dict(d) -> bool:
-    return (isinstance(d, dict) and len(d) > 0
-            and sorted(d) == [str(i) for i in range(len(d))])
+    # a set, not sorted(): '10' sorts before '2'
+    return isinstance(d, dict) and len(d) > 0 and set(d) == {str(i) for i in range(len(d))}
 
 
 def _leaf(name, a) -> torch.Tensor:

@@ -194,6 +194,38 @@ def vae_encode(params, generator, images, *, dtype=None, noise=None):
     return reparameterize(generator, mu, logvar, noise=noise), mu, logvar
 
 
+def vae_apply(params, generator, images, text_emb, mode: str = "train", *,
+              latent_dim: int = 8, latent_size: int = 27, image_size: int = None,
+              text_bias=None, dtype=None, compat_reshape: bool = False, noise=None):
+    """The reference's modes: 'train' / 'val' encode, reparameterize and
+    decode; 'generate' decodes the mean; 'sample' decodes a prior N(0, I)
+    draw (images ignored).  The reparameterize noise or the prior latent is
+    drawn from ``generator`` unless ``noise`` gives it."""
+    if mode == "sample" or images is None:
+        b = text_emb.shape[0]
+        latent = noise if noise is not None else torch.randn(
+            (b, latent_size, latent_size, latent_dim), generator=generator,
+            device=text_emb.device)
+        mu = logvar = None
+    else:
+        mu, logvar = vae_encoder_apply(params["encoder"], images, dtype=dtype)
+        latent = mu if mode == "generate" else reparameterize(generator, mu, logvar,
+                                                               noise=noise)
+    if image_size is None:
+        image_size = images.shape[1] if images is not None else 215
+    recon = vae_decode(params, latent, text_emb, text_bias=text_bias, dtype=dtype,
+                       image_size=image_size, compat_reshape=compat_reshape)
+    return {"reconstructed": recon, "latent": latent, "mu": mu, "logvar": logvar}
+
+
+def vae_sample(params, generator, text_emb, *, latent_dim: int = 8, latent_size: int = 27,
+               image_size: int = 215, text_bias=None, dtype=None, noise=None):
+    """Decode a prior draw (``noise`` gives it, else ``generator``)."""
+    return vae_apply(params, generator, None, text_emb, "sample", latent_dim=latent_dim,
+                     latent_size=latent_size, image_size=image_size, text_bias=text_bias,
+                     dtype=dtype, noise=noise)["reconstructed"]
+
+
 def vae_decode(params, latent, text_emb, *, text_bias=None, dtype=None,
                image_size: int = 215, compat_reshape: bool = False):
     return vae_decoder_apply(params["decoder"], latent, text_emb,

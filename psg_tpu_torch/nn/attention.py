@@ -126,7 +126,7 @@ def spatial_cross_attention(params, x, text_emb, num_heads: int = 8, *,
             wq, wp = wq.to(dtype), wp.to(dtype)
         out = fused_spatial_xattn(
             xn.reshape(b, h * w, c).contiguous(),
-            residual.to(xn.dtype).reshape(b, h * w, c).contiguous(),
+            residual.reshape(b, h * w, c).contiguous(),
             k, v, wq, params["q"]["b"], wp, params["proj"]["b"],
             num_heads=num_heads, text_bias=text_bias,
             compat_reshape=compat_reshape)

@@ -11,12 +11,20 @@ A wrapper takes the plain version for a tensor on the CPU, and for a CUDA
 tensor launches its kernel or raises; nothing falls back.  Each kernel
 library counts its launches (``launch_counts``).
 
-Training differentiates GroupNorm+SiLU and flash attention through
-``torch.autograd.Function``s (``fused_norm.GroupNormSiLU``,
-``flash_attention.FlashSDPA``): the kernel runs forward, and the backward
-recomputes the plain version and takes its gradient, as the TPU package's
-``custom_vjp`` does for its spatial kernel.  A backward launches no kernel,
-so the counts are forward launches only.
+Training differentiates every kernel through a ``torch.autograd.Function``
+(``fused_norm.GroupNormSiLU``, ``flash_attention.FlashSDPA``,
+``spatial_xattn.SpatialXattn``): the kernel runs forward, and the backward
+recomputes the plain version (for the spatial block, its fp32 body) and
+takes its gradient, as the TPU package's ``custom_vjp`` does for its spatial
+kernel.  A backward launches no kernel, so the counts are forward launches
+only.
+
+``sdpa`` dispatches on the bias's shape as the TPU package's ``ops.sdpa``
+does (``psg_tpu/ops/__init__.py``): ``None`` or a per-key ``[B, 1, 1, Lk]``
+bias goes to the flash kernel, any other bias that broadcasts to
+``[B, H, Lq, Lk]`` (CLIP's causal + padding mask) to ``sdpa_plain``, the
+reference's ``sdpa_xla``, on either device.  The kernel refuses such a bias,
+as the TPU kernel does, so the dispatch hides no kernel.
 """
 
 from __future__ import annotations
@@ -46,13 +54,17 @@ def group_norm_silu(params, x, num_groups: int, *, eps: float = 1e-5):
 def sdpa(q, k, v, *, bias=None, scale=None):
     """Scaled dot-product attention.
 
-    q: [B, H, Lq, D], k/v: [B, H, Lk, D], bias: None or [B, 1, 1, Lk].
+    q: [B, H, Lq, D], k/v: [B, H, Lk, D], bias: None, [B, 1, 1, Lk] (the
+    flash kernel) or any additive bias that broadcasts to [B, H, Lq, Lk]
+    (``sdpa_plain``).
     Head views are passed as they are: the kernel takes strides, and only an
     operand whose last dimension is strided (``compat_reshape``'s K/V) is
     copied.  On the card the output is a [B, H, Lq, D] view of [B, Lq, H, D]
     memory, so ``out.transpose(1, 2).reshape(B, Lq, H * D)`` is a view.
     Mixed dtypes compute in the widest one (as the reference's einsum
     promotion does) and return q's dtype."""
+    if not flash_attention.is_key_bias(bias, q.shape[0], k.shape[2]):
+        return flash_attention.sdpa_plain(q, k, v, bias=bias, scale=scale)
     dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
     out = flash_attention.flash_sdpa(_rows_contiguous(q.to(dt)),
                                      _rows_contiguous(k.to(dt)),

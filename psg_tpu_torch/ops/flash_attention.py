@@ -12,7 +12,8 @@ is written in ``[B, Lq, H, D]`` memory order and returned as its
 ``[B, H, Lq, D]`` view, so merging the heads back is a view too.
 
 Bias contract (as on the TPU): ``None`` or a per-key additive bias of shape
-``[B, 1, 1, Lk]``; any other shape raises.
+``[B, 1, 1, Lk]``; any other shape raises (``ops.sdpa`` sends such a bias to
+``sdpa_plain`` instead).
 
 Gradients: the TPU kernel has no VJP, and neither has this kernel.  Where a
 gradient is asked for, ``FlashSDPA`` (a ``torch.autograd.Function``)
@@ -41,11 +42,16 @@ KERNEL = cb.KernelLibrary(
 _Strides = ctypes.c_longlong * 12
 
 
+def is_key_bias(bias, b: int, lk: int) -> bool:
+    """Whether the kernel takes ``bias``: None or a [B, 1, 1, Lk] key bias."""
+    return bias is None or (bias.ndim == 4 and tuple(bias.shape) == (b, 1, 1, lk))
+
+
 def _key_bias(bias, b: int, lk: int):
     """[B,1,1,Lk] additive bias -> [B, Lk] fp32; other shapes raise."""
     if bias is None:
         return None
-    if bias.ndim != 4 or tuple(bias.shape) != (b, 1, 1, lk):
+    if not is_key_bias(bias, b, lk):
         raise NotImplementedError(
             f"flash_sdpa: bias must be None or [B,1,1,Lk]=({b},1,1,{lk}), "
             f"got {tuple(bias.shape)}")

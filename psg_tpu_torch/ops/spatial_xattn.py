@@ -19,10 +19,19 @@ fp32.  A key whose bias is <= -1e8 (the text mask's -1e9) has a probability
 of exactly 0.0 in fp32 whenever its sample has a live key, so the kernel
 skips it.
 
-No gradient runs through the kernel: the decoder that calls it is frozen in
-stage 2, and the CUDA path raises on an input that requires one (the stage-1
-port brings its ``torch.autograd.Function``, whose backward differentiates
-the plain version as ``psg_tpu/ops/spatial_xattn.py::_fused_bwd`` does).
+Gradients: the TPU kernel's ``custom_vjp`` (``_fused_bwd``) differentiates
+its fp32 reference body, recomputed.  ``SpatialXattn`` (a
+``torch.autograd.Function``) does the same: the kernel runs forward, and the
+backward recomputes the block from the saved operands with every operand
+upcast to fp32 and nothing rounded between (the plain version on fp32
+operands is that body), then takes its autograd gradient.  It is not the
+gradient of the bf16 plain version, whose roundings would round the
+gradient too.  Query rows are independent, so the backward runs in chunks
+of rows whose fp32 ``[B, H, rows, S]`` scores stay within ``CHUNK_BYTES``:
+the full-width decoder's 215^2 sites at batch 32 would otherwise hold
+several 6 GB score, exponential and probability tensors at once.  Nothing
+of size ``[B, H, L, S]`` is saved between forward and backward; the key
+bias (a text mask) takes no gradient.
 """
 
 from __future__ import annotations
@@ -88,7 +97,8 @@ def spatial_xattn_plain(xn, residual, kh, vh, wq, bq, wp, bp, *, key_bias=None,
     """The kernel's function in plain PyTorch, on the kernel's operands:
     xn/residual [B, L, C]; kh/vh [B, H, S, hd]; key_bias [B, S] or None;
     wq/wp [C, C] ([in, out]).  fp32, with bf16's rounding points for bf16
-    ``xn``; output in xn's dtype."""
+    ``xn``; output in xn's dtype.  On fp32 operands it rounds nowhere: it is
+    then the TPU package's reference body ``_ref_impl``."""
     b, l, c = xn.shape
     rnd = _rounding(xn.dtype)
     p = rnd(spatial_probs_plain(xn, kh, wq, bq, key_bias=key_bias, scale=scale))
@@ -140,6 +150,84 @@ def _launch(xn, residual, k, v, wq, bq, wp, bp, key_bias, scale: float,
     return out
 
 
+CHUNK_BYTES = 1 << 30   # the backward's fp32 [B, H, rows, S] scores per chunk
+
+
+def backward_rows(b: int, heads: int, s: int) -> int:
+    """Query rows per chunk of the recomputed backward."""
+    return max(1, CHUNK_BYTES // (b * heads * max(s, 1) * 4))
+
+
+def _plain_forward(xn, residual, k, v, wq, bq, wp, bp, key_bias, scale: float,
+                   num_heads: int, compat_reshape: bool):
+    return spatial_xattn_plain(
+        xn, residual, split_heads(k, num_heads, compat_reshape),
+        split_heads(v, num_heads, compat_reshape), wq, bq, wp, bp,
+        key_bias=key_bias, scale=scale)
+
+
+def spatial_xattn_fp32(xn, residual, k, v, wq, bq, wp, bp, *, num_heads: int,
+                       key_bias=None, scale: float, compat_reshape: bool = False):
+    """The block's fp32 body (``psg_tpu/ops/spatial_xattn.py::_ref_impl``):
+    every operand upcast to fp32, nothing rounded, fp32 output.  k/v are the
+    [B, S, C] projections.  Its autograd gradient is the kernel's."""
+    return _plain_forward(xn.float(), residual.float(), k.float(), v.float(), wq.float(),
+                          bq.float(), wp.float(), bp.float(), key_bias, scale, num_heads,
+                          compat_reshape)
+
+
+class SpatialXattn(torch.autograd.Function):
+    """``forward_impl(xn, residual, k, v, wq, bq, wp, bp, key_bias, scale,
+    num_heads, compat_reshape)`` computes the output (the kernel's launch on
+    the card); the backward differentiates the fp32 body, recomputed from
+    the saved operands in chunks of query rows, and casts each gradient to
+    its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, xn, residual, k, v, wq, bq, wp, bp, key_bias, scale, num_heads,
+                compat_reshape, forward_impl):
+        ctx.save_for_backward(xn, k, v, wq, bq, wp, bp, key_bias)
+        ctx.args = (scale, num_heads, compat_reshape, residual.dtype)
+        return forward_impl(xn, residual, k, v, wq, bq, wp, bp, key_bias, scale,
+                            num_heads, compat_reshape)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        xn, k, v, wq, bq, wp, bp, key_bias = ctx.saved_tensors
+        scale, num_heads, compat_reshape, res_dtype = ctx.args
+        b, l, c = xn.shape
+        rows = backward_rows(b, num_heads, k.shape[1])
+        shared = [t.detach().float().requires_grad_(True) for t in (k, v, wq, bq, wp, bp)]
+        sums = [torch.zeros_like(t) for t in shared]
+        dxn = torch.empty_like(xn) if ctx.needs_input_grad[0] else None
+        zero = torch.zeros((), device=xn.device)
+        for lo in range(0, l, rows):
+            with torch.enable_grad():
+                xc = xn[:, lo:lo + rows].detach().float().requires_grad_(True)
+                out = spatial_xattn_fp32(xc, zero, *shared, num_heads=num_heads,
+                                         key_bias=key_bias, scale=scale,
+                                         compat_reshape=compat_reshape)
+                grads = torch.autograd.grad(out, [xc, *shared],
+                                            grad_out[:, lo:lo + rows].float())
+            if dxn is not None:
+                dxn[:, lo:lo + rows] = grads[0]
+            torch._foreach_add_(sums, list(grads[1:]))
+        dk, dv, dwq, dbq, dwp, dbp = (g.to(t.dtype) for g, t in
+                                      zip(sums, (k, v, wq, bq, wp, bp)))
+        dres = grad_out.to(res_dtype) if ctx.needs_input_grad[1] else None
+        return dxn, dres, dk, dv, dwq, dbq, dwp, dbp, None, None, None, None, None
+
+
+def spatial_xattn_autograd(xn, residual, k, v, wq, bq, wp, bp, *, num_heads: int,
+                           key_bias=None, scale: float, compat_reshape: bool = False,
+                           forward_impl=_launch):
+    """``SpatialXattn`` on the kernel's operands (k/v [B, S, C] fp32,
+    key_bias [B, S] or None; ``forward_impl`` defaults to the kernel, the CPU
+    path passes the plain version)."""
+    return SpatialXattn.apply(xn, residual, k, v, wq, bq, wp, bp, key_bias, scale,
+                              num_heads, compat_reshape, forward_impl)
+
+
 def fused_spatial_xattn(xn, residual, k, v, wq, bq, wp, bp, *, num_heads: int,
                         text_bias=None, scale=None, compat_reshape: bool = False):
     """GN-free body of the VAE spatial cross-attention block.
@@ -151,7 +239,8 @@ def fused_spatial_xattn(xn, residual, k, v, wq, bq, wp, bp, *, num_heads: int,
     residual in xn's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor takes the kernel or
-    raises."""
+    raises.  Where a gradient is asked for, both go through
+    ``SpatialXattn``."""
     b, _, c = xn.shape
     s = k.shape[1]
     if scale is None:
@@ -162,15 +251,11 @@ def fused_spatial_xattn(xn, residual, k, v, wq, bq, wp, bp, *, num_heads: int,
     wq, wp = wq.to(xn.dtype), wp.to(xn.dtype)
     bq, bp = bq.float().contiguous(), bp.float().contiguous()
     k, v = k.float().contiguous(), v.float().contiguous()
-    if xn.device.type == "cpu":
-        return spatial_xattn_plain(
-            xn, residual, split_heads(k, num_heads, compat_reshape),
-            split_heads(v, num_heads, compat_reshape), wq, bq, wp, bp,
-            key_bias=key_bias, scale=scale)
+    impl = _plain_forward if xn.device.type == "cpu" else _launch
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (xn, residual, k, v, wq, bq, wp, bp)):
-        raise NotImplementedError(
-            "fused_spatial_xattn: the kernel has no gradient yet; run the frozen "
-            "decoder under torch.no_grad() (its autograd Function comes with stage 1)")
-    return _launch(xn, residual, k, v, wq, bq, wp, bp, key_bias, scale, num_heads,
-                   compat_reshape)
+        return spatial_xattn_autograd(xn, residual, k, v, wq, bq, wp, bp,
+                                      num_heads=num_heads, key_bias=key_bias, scale=scale,
+                                      compat_reshape=compat_reshape, forward_impl=impl)
+    return impl(xn, residual, k, v, wq, bq, wp, bp, key_bias, scale, num_heads,
+                compat_reshape)

@@ -1,20 +1,22 @@
 """Training CLI (port of ``psg_tpu/train/cli.py``): the JAX CLI's flags plus
 ``--device``.
 
-    python -m psg_tpu_torch.train.cli --stage 2 [--config config/train_config.yaml]
+    python -m psg_tpu_torch.train.cli --stage 1|2 [--config config/train_config.yaml]
         [--vae-checkpoint PATH] [--experiment-name NAME] [--resume PATH]
         [--override section.key=value ...] [--device cpu]
     python -m psg_tpu_torch.train.cli --data-stats
 
-Stage 2 (``train/stage2_diffusion.py``) and ``--data-stats`` are ported.
-Stages 0, 1, 3 and ``all``, and ``--use-diffusers``, raise
-``NotImplementedError`` naming the ROADMAP item that ports them, so that
-nothing runs half a pipeline.  Runs on the card unless ``--device cpu``.
+Stages 1 (``train/stage1_vae.py``) and 2 (``train/stage2_diffusion.py``) and
+``--data-stats`` are ported.  Stages 0, 3 and ``all``, and
+``--use-diffusers``, raise ``NotImplementedError`` naming the ROADMAP item
+that ports them, so that nothing runs half a pipeline.  Runs on the card
+unless ``--device cpu``.
 
+Stage 1 writes ``{experiment_dir}/{name}_vae/checkpoints/vae_best_model.ckpt``.
 Stage 2 reads its frozen VAE and text encoder from ``--vae-checkpoint``,
-which must exist, else from the stage-1 path of the reference's convention,
-``{experiment_dir}/{name}_vae/checkpoints/vae_best_model.ckpt``, when that
-exists, else draws them from the config's seed (and says so).
+which must exist, else from that stage-1 path when it exists, else draws
+them from the config's seed (and says so).  ``--resume`` resumes the stage
+that runs.
 """
 
 from __future__ import annotations
@@ -26,10 +28,9 @@ from pathlib import Path
 from psg_tpu_torch.core.config import load_config
 
 _NOT_PORTED = {
-    "0": "stage 0 (MLM pretraining, psg_tpu/train/stage0_mlm.py): ROADMAP Queue A item 10",
-    "1": "stage 1 (VAE, psg_tpu/train/stage1_vae.py): ROADMAP Queue A item 10",
-    "3": "stage 3 (final, psg_tpu/train/stage3_final.py): ROADMAP Queue A item 10",
-    "all": "--stage all needs stages 1 and 3 (ROADMAP Queue A item 10)",
+    "0": "stage 0 (MLM pretraining, psg_tpu/train/stage0_mlm.py): ROADMAP Queue A item 5",
+    "3": "stage 3 (final, psg_tpu/train/stage3_final.py): ROADMAP Queue A item 3",
+    "all": "--stage all needs stage 3 (ROADMAP Queue A item 3)",
 }
 
 
@@ -78,7 +79,17 @@ def main(argv=None) -> int:
         raise NotImplementedError(f"not ported yet: {_NOT_PORTED[args.stage]}")
     if args.use_diffusers:
         raise NotImplementedError("not ported yet: --use-diffusers (the SD-UNet stage 2, "
-                                  "psg_tpu/train/stage2_sd.py): ROADMAP Queue A item 11")
+                                  "psg_tpu/train/stage2_sd.py): ROADMAP Queue A item 6")
+
+    if args.stage == "1":
+        from psg_tpu_torch.train.stage1_vae import VAETrainer
+
+        t = VAETrainer(cfg, experiment_name=args.experiment_name, device=args.device)
+        if args.resume:
+            t.load_checkpoint(args.resume)
+        best = t.train()
+        print(f"stage 1 complete: {best}")
+        return 0
 
     from psg_tpu_torch.train.stage2_diffusion import DiffusionTrainer
 

@@ -6,7 +6,17 @@ from __future__ import annotations
 import os
 from pathlib import Path
 
+import numpy as np
+import torch
+
 from psg_tpu_torch.text.tokenizer import WordPieceTokenizer
+
+
+def device_batch(batch, device):
+    """A loader batch's image, ids and mask as tensors on ``device``."""
+    return {"image": torch.from_numpy(np.asarray(batch["image"])).to(device),
+            "text_ids": torch.from_numpy(np.asarray(batch["text_ids"])).long().to(device),
+            "text_mask": torch.from_numpy(np.asarray(batch["text_mask"])).long().to(device)}
 
 
 def get_tokenizer(cfg, stage_dir: Path, corpus=None) -> WordPieceTokenizer:

@@ -276,6 +276,12 @@ def build_optimizer(opt_cfg, groups: Dict[str, dict], labels, *,
     return Optimizer(opt_cfg, groups, labels, max_consecutive_errors=max_consecutive_errors)
 
 
+def labels_from_mask(mask_tree, trainable_label: str):
+    """Boolean fine-tune mask tree -> label tree (``trainable_label`` or
+    ``'frozen'``)."""
+    return tree.map(lambda t: trainable_label if t else "frozen", mask_tree)
+
+
 def skipped_steps(state) -> int:
     """Non-finite rejections plus every group's norm rejections."""
     return state["total_notfinite"] + sum(g["skipped"] for g in state["groups"].values())

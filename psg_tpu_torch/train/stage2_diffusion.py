@@ -31,7 +31,6 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 
 from psg_tpu_torch.core import tree
@@ -66,7 +65,7 @@ from psg_tpu_torch.models.vae import (
 )
 from psg_tpu_torch.nn.layers import prepare_weights
 from psg_tpu_torch.serve.generator import resolve_device
-from psg_tpu_torch.train.common import get_tokenizer
+from psg_tpu_torch.train.common import device_batch, get_tokenizer
 from psg_tpu_torch.train.optim import (
     build_optimizer,
     ema_update,
@@ -94,7 +93,7 @@ class DiffusionTrainer:
         if cfg.training.fast_path:
             raise NotImplementedError(
                 "training.fast_path (the device-resident path of psg_tpu/train/"
-                "fastpath.py) is not ported yet (ROADMAP Queue A item 10); set "
+                "fastpath.py) is not ported yet (ROADMAP Queue A item 4); set "
                 "training.fast_path=false for the classic loader path")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
@@ -195,12 +194,7 @@ class DiffusionTrainer:
         return prepare_weights(params, self.compute_dtype)
 
     def _batch(self, batch):
-        """A loader batch's image, ids and mask on the device."""
-        return {"image": torch.from_numpy(np.asarray(batch["image"])).to(self.device),
-                "text_ids": torch.from_numpy(np.asarray(batch["text_ids"])).long()
-                .to(self.device),
-                "text_mask": torch.from_numpy(np.asarray(batch["text_mask"])).long()
-                .to(self.device)}
+        return device_batch(batch, self.device)
 
     # -- the loss ------------------------------------------------------------
 

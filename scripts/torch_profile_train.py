@@ -1,25 +1,29 @@
 #!/usr/bin/env python3
-"""Where one full-width stage-2 training step of psg_tpu_torch spends its
-time on the card.
+"""Where one full-width training step of psg_tpu_torch spends its time on
+the card.
 
-    python3 scripts/torch_profile_train.py [--steps 3] [--trace PATH]
+    python3 scripts/torch_profile_train.py [--stage 1|2] [--steps 3] [--trace PATH]
 
-Builds the stage-2 trainer at config/train_config.yaml's full width (bf16,
-UNet 320/640/1280/1280, BERT-base, full VAE, 215x215, batch 32) with random
+Builds the trainer of the stage at config/train_config.yaml's full width
+(bf16, BERT-base, full VAE, 215x215, batch 32; stage 2 with the UNet
+320/640/1280/1280, stage 1 with the VGG16 perceptual loss) with random
 weights from the config's seed over 128 sprites made from a seed (in a
 temporary directory), takes one warm-up step, then for the whole step and
-for each of its parts (the forward to the loss: frozen text and VAE
-encoders, q_sample, the UNet; the backward; the optimizer and the EMA)
-prints one JSON line: host wall time ending in a sync (the mean of
-``--steps`` runs without the profiler, and the profiled run's), the summed
-device time of its kernels, their number, the device's idle share (1 -
-kernel time / wall), device time and kernel count by kernel family, the ten
-heaviest kernels, and the device time of the backward's recomputation of
-the plain GN+SiLU and flash attention: CUDA events around each autograd
-Function's backward (the script wraps them; the backward runs on the
-current stream, so the interval holds exactly its kernels), summed per
-step.  Then the step's samples/s and peak device memory.  Needs one CUDA
-card; imports no JAX.
+for each of its parts prints one JSON line: host wall time ending in a sync
+(the mean of ``--steps`` runs without the profiler, and the profiled run's),
+the summed device time of its kernels, their number, the device's idle share
+(1 - kernel time / wall), device time and kernel count by kernel family, the
+ten heaviest kernels, and the device time of the backward's recomputation of
+the kernels' plain versions: CUDA events around each autograd Function's
+backward (the script wraps them; the backward runs on the current stream, so
+the interval holds exactly its kernels and the gaps between them), summed per
+step.  Then the step's samples/s and peak device memory.
+
+Parts.  Stage 2: the forward to the loss (frozen text and VAE encoders,
+q_sample, the UNet), the backward, the optimizer and the EMA.  Stage 1: the
+text encode, the VAE encode (and reparameterize), the decode, the VGG16
+perceptual loss, each with autograd recording as in the step; the backward;
+the optimizer.  Needs one CUDA card; imports no JAX.
 """
 
 import argparse
@@ -45,10 +49,11 @@ RECOMPUTE = defaultdict(list)   # Function name -> [(start, end) CUDA events]
 
 
 def time_backwards():
-    """Wrap GroupNormSiLU's and FlashSDPA's backward in CUDA events."""
-    from psg_tpu_torch.ops import flash_attention, fused_norm
+    """Wrap the kernels' autograd Functions' backwards in CUDA events."""
+    from psg_tpu_torch.ops import flash_attention, fused_norm, spatial_xattn
 
-    for cls in (fused_norm.GroupNormSiLU, flash_attention.FlashSDPA):
+    for cls in (fused_norm.GroupNormSiLU, flash_attention.FlashSDPA,
+                spatial_xattn.SpatialXattn):
         def timed(ctx, grad, _orig=cls.backward, _name=cls.__name__):
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
                 enable_timing=True)
@@ -112,8 +117,107 @@ def measure(name, fn, reps, setup=None, trace=None):
     return rec
 
 
+def profile_stage2(cfg, args):
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.train.optim import ema_update
+    from psg_tpu_torch.train.stage2_diffusion import DiffusionTrainer
+
+    tr = DiffusionTrainer(cfg, None, experiment_name="profile", device="cuda")
+    batch = tr._batch(next(iter(tr.train_loader)))
+    bs = batch["image"].shape[0]
+    print(json.dumps({"stage": 2, "batch": bs,
+                      "params": sum(t.numel() for t in tree.leaves(tr.state.params))}),
+          flush=True)
+    tr._step(batch)                        # warm-up: cuDNN and cuBLAS pick kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st = tr.state
+    leaves = tree.leaves(st.params)
+
+    def forward(_):
+        return tr._noise_loss(st.params, tr.frozen, batch, st.rng, dropout=tr._dropout(None))
+
+    step = measure(f"train step (batch {bs})", lambda _: tr._step(batch), args.steps,
+                   trace=args.trace)
+    measure("forward to the loss", forward, args.steps)
+    measure("backward", lambda loss: torch.autograd.grad(loss, leaves), args.steps,
+            setup=lambda: forward(None))
+
+    def update(g):
+        tr.tx.update(st.params, g, st.opt_state)
+        if tr.ema_decay > 0:
+            ema_update(st.ema, st.params, tr.ema_decay)
+
+    measure("optimizer + EMA", update, args.steps, setup=lambda: tr._grads(batch)[1])
+    return bs, step, tr.skipped_batches()
+
+
+def profile_stage1(cfg, args):
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.models.losses import perceptual_loss
+    from psg_tpu_torch.models.text_encoder import text_encoder_apply
+    from psg_tpu_torch.models.unet import text_bias_from_mask
+    from psg_tpu_torch.models.vae import reparameterize, vae_decode, vae_encoder_apply
+    from psg_tpu_torch.train.stage1_vae import VAETrainer
+
+    tr = VAETrainer(cfg, experiment_name="profile", device="cuda")
+    batch = tr._batch(next(iter(tr.train_loader)))
+    bs, klw = batch["image"].shape[0], tr.kl_weight(1)
+    print(json.dumps({"stage": 1, "batch": bs,
+                      "params": sum(t.numel() for t in tree.leaves(tr.state.params))}),
+          flush=True)
+    tr._step(batch, klw)                   # warm-up: cuDNN and cuBLAS pick kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st, dt = tr.state, tr.compute_dtype
+    p = st.params
+    leaves = tree.leaves(p)
+    bias = text_bias_from_mask(batch["text_mask"])
+
+    def text(_):
+        return text_encoder_apply(p["text"], batch["text_ids"], batch["text_mask"],
+                                  tr.bert_cfg, dtype=dt)
+
+    def encode(_):
+        mu, logvar = vae_encoder_apply(p["vae"]["encoder"], batch["image"], dtype=dt)
+        return reparameterize(st.rng, mu, logvar), mu, logvar
+
+    def decode(_):
+        return vae_decode(p["vae"], latent, emb, text_bias=bias, dtype=dt,
+                          image_size=cfg.data.image_size)
+
+    def perceptual(_):
+        return perceptual_loss(tr.vgg_params, (recon + 1.0) / 2.0,
+                               (batch["image"] + 1.0) / 2.0, dtype=dt)
+
+    def forward(_):
+        return tr._forward_loss(p, batch, klw, "train", st.rng)[0]
+
+    step = measure(f"train step (batch {bs})", lambda _: tr._step(batch, klw), args.steps,
+                   trace=args.trace)
+    emb = measure_out("text encode", text, args.steps)
+    latent, mu, logvar = measure_out("VAE encode + reparameterize", encode, args.steps)
+    recon = measure_out("decode", decode, args.steps)
+    measure("VGG16 perceptual loss", perceptual, args.steps)
+    del emb, latent, mu, logvar, recon
+    measure("backward", lambda loss: torch.autograd.grad(loss, leaves, allow_unused=True),
+            args.steps, setup=lambda: forward(None))
+    measure("optimizer", lambda g: tr.tx.update(p, g, st.opt_state), args.steps,
+            setup=lambda: tr._grads(batch, klw)[1])
+    return bs, step, tr.skipped_batches()
+
+
+def measure_out(name, fn, reps):
+    """``measure``, then one more call whose output the next part takes."""
+    measure(name, fn, reps)
+    out = fn(None)
+    torch.cuda.synchronize()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--stage", type=int, default=2, choices=(1, 2))
     ap.add_argument("--steps", type=int, default=3, help="unprofiled runs per part")
     ap.add_argument("--trace", help="write the whole step's chrome trace here")
     args = ap.parse_args()
@@ -121,17 +225,15 @@ def main():
         sys.exit("torch_profile_train: needs a CUDA device")
 
     from psg_tpu_torch import ops
-    from psg_tpu_torch.core import tree
     from psg_tpu_torch.core.config import load_config
     from psg_tpu_torch.data.synthetic import write_sprite_corpus
     from psg_tpu_torch.ops import cuda_build
-    from psg_tpu_torch.train.optim import ema_update
-    from psg_tpu_torch.train.stage2_diffusion import DiffusionTrainer
 
     cuda_build.build_all(ops.KERNELS)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
+    print(json.dumps({"card": smi, "torch": torch.__version__}), flush=True)
     with tempfile.TemporaryDirectory(prefix="profile_train_") as tmp:
         csv, images = write_sprite_corpus(Path(tmp) / "corpus", n=128, seed=0, size=215)
         (Path(tmp) / "exp").mkdir()
@@ -140,41 +242,11 @@ def main():
         cfg = load_config(ROOT / "config" / "train_config.yaml",
                           [f"experiment_dir={Path(tmp) / 'exp'}", f"data.csv_path={csv}",
                            f"data.image_dir={images}"])
-        tr = DiffusionTrainer(cfg, None, experiment_name="profile", device="cuda")
-        batch = tr._batch(next(iter(tr.train_loader)))
-        bs = batch["image"].shape[0]
-        print(json.dumps({"card": smi, "torch": torch.__version__, "batch": bs,
-                          "params": sum(t.numel() for t in tree.leaves(tr.state.params))}),
-              flush=True)
         time_backwards()
-        tr._step(batch)                        # warm-up: cuDNN and cuBLAS pick kernels
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        st = tr.state
-        leaves = tree.leaves(st.params)
-
-        def forward(_):
-            return tr._noise_loss(st.params, tr.frozen, batch, st.rng,
-                                  dropout=tr._dropout(None))
-
-        step = measure(f"train step (batch {bs})", lambda _: tr._step(batch), args.steps,
-                       trace=args.trace)
-        measure("forward to the loss", forward, args.steps)
-        measure("backward", lambda loss: torch.autograd.grad(loss, leaves), args.steps,
-                setup=lambda: forward(None))
-
-        def grads():
-            return tr._grads(batch)[1]
-
-        def update(g):
-            tr.tx.update(st.params, g, st.opt_state)
-            if tr.ema_decay > 0:
-                ema_update(st.ema, st.params, tr.ema_decay)
-
-        measure("optimizer + EMA", update, args.steps, setup=grads)
+        bs, step, skipped = (profile_stage1 if args.stage == 1 else profile_stage2)(cfg, args)
         print(json.dumps({"samples_per_s": bs / (step["wall_ms"] / 1e3),
                           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                          "skipped_batches": tr.skipped_batches()}), flush=True)
+                          "skipped_batches": skipped}), flush=True)
     print(smi, flush=True)
 
 

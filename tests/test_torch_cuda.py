@@ -418,12 +418,165 @@ def test_unet_gradient_reaches_every_parameter(card):
                                    msg=path)
 
 
-def test_spatial_xattn_raises_when_a_gradient_is_asked_for(card):
-    """Stage 2 never differentiates the spatial kernel (the decoder is
-    frozen); an input that requires grad raises instead of being detached."""
-    operands = list(_spatial_operands(card, torch.float32, 1, 16, 32, 8))
-    operands[0] = operands[0].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="no gradient"):
-        spatial_xattn.fused_spatial_xattn(*operands[:8], num_heads=8)
-    with torch.no_grad():
-        spatial_xattn.fused_spatial_xattn(*operands[:8], num_heads=8)
+def spatial_fp32_grads(inputs, gy, *, key_bias, batch_chunk=None):
+    """Output and gradients of the spatial block's fp32 body by plain
+    autograd, unchunked in rows; over ``batch_chunk`` samples at a time
+    (the samples are independent; Wq, bq, Wp and bp sum over them), each
+    gradient cast to its input's dtype."""
+    b = inputs[0].shape[0]
+    step = batch_chunk or b
+    outs, per_sample, shared = [], [[] for _ in range(4)], None
+    for lo in range(0, b, step):
+        # the shared weights as fp32 leaves: their sums over the slices stay
+        # fp32 until the one cast at the end (the body upcasts them anyway)
+        xs = [t[lo:lo + step] if i < 4 else t.float() for i, t in enumerate(inputs)]
+        xs = [t.detach().clone().requires_grad_(True) for t in xs]
+        out = spatial_xattn.spatial_xattn_fp32(
+            *xs, num_heads=8, key_bias=None if key_bias is None else key_bias[lo:lo + step],
+            scale=(inputs[0].shape[-1] // 8) ** -0.5)
+        g = torch.autograd.grad(out, xs, gy[lo:lo + step].float())
+        outs.append(out.detach())
+        for i in range(4):
+            per_sample[i].append(g[i])
+        shared = list(g[4:]) if shared is None else [a + c for a, c in zip(shared, g[4:])]
+    grads = [torch.cat(p) for p in per_sample] + shared
+    return torch.cat(outs), [g.to(t.dtype) for g, t in zip(grads, inputs)]
+
+
+# The training gradient cases' tolerance (atol + rtol |ref|), plus a term for the sums
+# over batch x 46225 rows that give k, v, Wq, bq, Wp and bp: the Function
+# sums them over chunks of rows and the reference in one pass, and their
+# fp32 summation noise scales with the largest element, not with each one
+# (measured on an H100: both within 5e-6 max|g| of a float64 reference, and
+# bit-equal where the backward takes one chunk).
+SPATIAL_GRAD_TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4, max_rtol=1e-5),
+                    torch.bfloat16: dict(rtol=2e-2, atol=2e-2, max_rtol=1e-4)}
+
+
+def _assert_spatial_grad_close(g, r, dtype, name=""):
+    tol = SPATIAL_GRAD_TOL[dtype]
+    g, r = g.float(), r.float()
+    bound = tol["atol"] + tol["rtol"] * r.abs() + tol["max_rtol"] * r.abs().max()
+    err = (g - r).abs()
+    assert bool((err <= bound).all()), \
+        f"{name}: max|dg| {float(err.max()):.3g}, worst err/bound {float((err / bound).max()):.3g}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,cold,mask", [
+    (64, False, "prompt"),   # the decoder's 215^2 C64 site, prompt masks
+    (64, True, "third"),     # ... cold heads
+    (32, False, "prompt"),   # the 215^2 C32 site, prompt masks
+    (32, True, "third"),     # ... cold heads
+])
+def test_spatial_xattn_gradients(card, dtype, c, cold, mask):
+    """SpatialXattn on the kernel (the forward) against autograd of the fp32
+    body at the decoder's 215^2 sites (batch 8): the output within the
+    kernel's tolerance of the plain version; every operand's gradient
+    within 0.02 + 0.02 |ref| + 1e-4 max|ref| (bf16) or 1e-4 + 1e-4 |ref| +
+    1e-5 max|ref| (fp32) of the body's, finite, in its input's dtype; one
+    launch, in the forward."""
+    inputs = _spatial_operands(card, dtype, 8, 215 * 215, c, 128, cold=cold, mask=mask)
+    operands, bias = list(inputs[:8]), inputs[8]
+    # Wq and Wp in the activations' dtype, as the decoder hands them over
+    operands[4], operands[6] = operands[4].to(dtype), operands[6].to(dtype)
+    gy = _randn((8, 215 * 215, c), 9, card, dtype)
+    ops.reset_launch_counts()
+    xs = [t.detach().clone().requires_grad_(True) for t in operands]
+    out = spatial_xattn.fused_spatial_xattn(*xs, num_heads=8, text_bias=bias)
+    assert type(out.grad_fn).__name__ == "SpatialXattnBackward"
+    got = torch.autograd.grad(out, xs, gy)
+    assert ops.launch_counts()["spatial_xattn"] == 1
+    plain = spatial_xattn.spatial_xattn_plain(
+        operands[0], operands[1], spatial_xattn.split_heads(operands[2], 8, False),
+        spatial_xattn.split_heads(operands[3], 8, False), *operands[4:],
+        key_bias=bias.reshape(8, -1), scale=(c // 8) ** -0.5)
+    torch.testing.assert_close(out.detach().float(), plain.float(),
+                               **(COLD_TOL if cold else TOL)[dtype])
+    _, ref = spatial_fp32_grads(operands, gy, key_bias=bias.reshape(8, -1))
+    for name, g, r, x in zip(("xn", "residual", "k", "v", "wq", "bq", "wp", "bp"), got, ref,
+                             operands):
+        assert g.dtype == x.dtype and torch.isfinite(g.float()).all(), name
+        _assert_spatial_grad_close(g, r, dtype, name)
+
+
+def test_spatial_xattn_backward_chunks_rows(card):
+    """At the 215^2 C32 site at batch 32 the backward's fp32 scores exceed
+    one chunk: the Function runs in several chunks of rows and still gives
+    the body's gradients."""
+    b, s = 32, 128
+    rows = spatial_xattn.backward_rows(b, 8, s)
+    assert rows * b * 8 * s * 4 <= spatial_xattn.CHUNK_BYTES and 215 * 215 > 2 * rows
+    inputs = _spatial_operands(card, torch.bfloat16, b, 215 * 215, 32, s, mask="prompt")
+    operands, bias = list(inputs[:8]), inputs[8]
+    operands[4], operands[6] = operands[4].bfloat16(), operands[6].bfloat16()
+    gy = _randn((b, 215 * 215, 32), 9, card, torch.bfloat16)
+    xs = [t.detach().clone().requires_grad_(True) for t in operands]
+    torch.cuda.reset_peak_memory_stats()
+    got = torch.autograd.grad(spatial_xattn.fused_spatial_xattn(
+        *xs, num_heads=8, text_bias=bias), xs, gy)
+    # the transients of one chunk, not the whole [B, H, L, S] body (6 GB a tensor)
+    assert torch.cuda.max_memory_allocated() < 12e9
+    _, ref = spatial_fp32_grads(operands, gy, key_bias=bias.reshape(b, -1), batch_chunk=4)
+    for g, r in zip(got, ref):
+        _assert_spatial_grad_close(g, r, torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spatial_xattn_one_chunk_backward_is_the_fp32_body(card, dtype):
+    """Where the backward takes one chunk (batch 4 at the 215^2 C32 site) it
+    is the fp32 body's autograd, bit for bit, cold heads included."""
+    assert spatial_xattn.backward_rows(4, 8, 128) >= 215 * 215
+    inputs = _spatial_operands(card, dtype, 4, 215 * 215, 32, 128, cold=True, mask="prompt")
+    operands, bias = list(inputs[:8]), inputs[8]
+    operands[4], operands[6] = operands[4].to(dtype), operands[6].to(dtype)
+    gy = _randn((4, 215 * 215, 32), 9, card, dtype)
+    xs = [t.detach().clone().requires_grad_(True) for t in operands]
+    got = torch.autograd.grad(spatial_xattn.fused_spatial_xattn(
+        *xs, num_heads=8, text_bias=bias), xs, gy)
+    _, ref = spatial_fp32_grads(operands, gy, key_bias=bias.reshape(4, -1))
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_stage1_gradient_reaches_every_leaf(card, tmp_path):
+    """A tiny stage-1 trainer on the card (fp32, TF32 off), through all three
+    kernels: every VAE and text leaf gets a finite gradient, within 1e-3 *
+    max|g| + 1e-6 of the same trainer's on the CPU (plain versions), and
+    non-zero wherever the CPU's is; BERT's pooler, which the loss does not
+    reach, gets zeros on both."""
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.core.config import Config
+    from psg_tpu_torch.data.synthetic import write_sprite_corpus
+    from psg_tpu_torch.models import bridge
+    from psg_tpu_torch.train.stage1_vae import VAETrainer
+
+    csv, images = write_sprite_corpus(tmp_path / "corpus", n=6, seed=0, size=64)
+    cfg = Config()
+    cfg.experiment_dir = str(tmp_path / "exp")
+    cfg.model.bert_model, cfg.model.vae_width_scale = "tiny-test", 0.25
+    cfg.model.text_embedding_dim = 48
+    cfg.data.csv_path, cfg.data.image_dir = str(csv), str(images)
+    cfg.data.image_size, cfg.data.batch_size, cfg.data.text_len = 64, 2, 32
+    cpu = VAETrainer(cfg, experiment_name="cpu", device="cpu")
+    gpu = VAETrainer(cfg, experiment_name="card", device="cuda")
+    gpu.state = gpu._fresh_state(bridge.fit(gpu.state.params, cpu.state.params), step=0,
+                                 rng=gpu.state.rng)
+    gpu.vgg_params = bridge.fit(gpu.vgg_params, cpu.vgg_params)
+    batch = next(iter(cpu.train_loader))
+    noise = torch.from_numpy(np.random.RandomState(0).randn(
+        2, cpu.latent_size, cpu.latent_size, 8).astype(np.float32))
+    ops.reset_launch_counts()
+    _, got = gpu._grads(gpu._batch(batch), 0.005, {"rep_noise": noise})
+    counts = ops.launch_counts()
+    assert min(counts.values()) > 0, counts
+    _, ref = cpu._grads(cpu._batch(batch), 0.005, {"rep_noise": noise})
+    for (path, g), r in zip(tree.items(got), tree.leaves(ref)):
+        g = g.cpu()
+        assert torch.isfinite(g).all(), path
+        if path.startswith("text.bert.pooler"):
+            assert not g.abs().max() and not r.abs().max(), path
+        elif float(r.abs().max()) > 1e-6:   # not a conv bias a GroupNorm cancels
+            assert g.abs().max() > 0, path
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-3 * float(r.abs().max()) + 1e-6,
+                                   msg=path)

@@ -120,10 +120,24 @@ def test_sdpa_mixed_dtypes_promote_and_return_q_dtype():
     torch.testing.assert_close(out, ref, rtol=0, atol=0)
 
 
-def test_flash_rejects_non_key_bias():
-    q = torch.zeros(1, 2, 8, 16)
+def test_sdpa_takes_clips_causal_padding_bias():
+    """CLIP's causal + padding bias [B, 1, L, L] (psg_tpu/models/clip.py):
+    ops.sdpa sends it to the plain version, as the reference's ops.sdpa
+    sends it to sdpa_xla, and matches sdpa_xla; the flash kernel's wrapper
+    still refuses it, as the TPU kernel does."""
+    rng = np.random.RandomState(4)
+    q, k, v = (rng.randn(2, 4, 7, 8).astype(np.float32) for _ in range(3))
+    mask = np.ones((2, 7), np.int32)
+    mask[1, 4:] = 0
+    causal = np.tril(np.ones((7, 7), np.float32))
+    bias = (np.where(causal[None, None] > 0, 0.0, -1e9)
+            + np.where(mask[:, None, None, :] > 0, 0.0, -1e9)).astype(np.float32)
+    assert bias.shape == (2, 1, 7, 7)
+    ref = sdpa_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), bias=jnp.asarray(bias))
+    got = ops.sdpa(_t(q), _t(k), _t(v), bias=_t(bias))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
     with pytest.raises(NotImplementedError):
-        flash_sdpa(q, q, q, bias=torch.zeros(1, 2, 8, 8))
+        flash_sdpa(_t(q), _t(k), _t(v), bias=_t(bias))
 
 
 # ---------------------------------------------------------------------------
@@ -327,6 +341,146 @@ def test_spatial_block_matches_xla_path(spatial_setup, compat):
                                   text_bias=text_bias_from_mask(_t(mask)),
                                   compat_reshape=compat)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# the spatial block's gradient (SpatialXattn) against the TPU kernel's custom_vjp
+# ---------------------------------------------------------------------------
+
+
+def _spatial_grad_operands(cold, masked, seed=5):
+    """fp32 operands of the fused block: B 2, L 81, C 64, S 12, 8 heads.
+    ``cold``: head 0's query carries a large bias along key 0's head-0
+    channels, so key 0's head-0 score sits about 170 above the other heads'
+    scores (one-hot in fp32) and every other head is cold against it: a
+    shared row max would underflow their exp() to 0 and NaN the
+    gradient."""
+    rng = np.random.RandomState(seed)
+    b, l, c, s = 2, 81, 64, 12
+    xn, res = (rng.randn(b, l, c).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(b, s, c).astype(np.float32) for _ in range(2))
+    wq, wp = ((rng.randn(c, c) * c ** -0.5).astype(np.float32) for _ in range(2))
+    bq, bp = ((rng.randn(c) * 0.1).astype(np.float32) for _ in range(2))
+    if cold:
+        bq[:8] = 20.0
+        k[:, 0, :8] = 3.0
+    mask = np.ones((b, s), np.int32)
+    if masked:
+        mask[1, 5:] = 0
+    g = rng.randn(b, l, c).astype(np.float32)
+    return [xn, res, k, v, wq, bq, wp, bp], mask, g
+
+
+@pytest.mark.parametrize("compat", [False, True])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("cold", [False, True])
+def test_spatial_gradients_match_custom_vjp(compat, masked, cold):
+    """SpatialXattn (the plain forward on the CPU; the backward recomputes
+    the fp32 body in chunks of rows) against jax.vjp of the TPU kernel's
+    custom_vjp (_fused, interpret mode): every operand's gradient within
+    1e-5 * max|g| + 1e-7, all finite; no [B, H, L, S] tensor is saved."""
+    from psg_tpu_torch.ops import spatial_xattn as sx
+
+    operands, mask, g = _spatial_grad_operands(cold, masked)
+    jbias = jax_text_bias(jnp.asarray(mask)) if masked else None
+
+    def jax_block(xn, res, k, v, wq, bq, wp, bp):
+        return jax_fused_spatial(xn, res, k, v, wq, bq, wp, bp, num_heads=HEADS,
+                                 text_bias=jbias, compat_reshape=compat, interpret=True)
+
+    ref_out, vjp = jax.vjp(jax_block, *map(jnp.asarray, operands))
+    ref = vjp(jnp.asarray(g))
+    xs = [_t(a).requires_grad_(True) for a in operands]
+    saved = []
+
+    def pack(t):
+        saved.append(t.numel())
+        return t
+
+    b, l, c = operands[0].shape
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fused_spatial_xattn(*xs, num_heads=HEADS,
+                                  text_bias=text_bias_from_mask(_t(mask)) if masked else None,
+                                  compat_reshape=compat)
+    assert type(out.grad_fn).__name__ == "SpatialXattnBackward"
+    assert max(saved) < b * HEADS * l * operands[2].shape[1]
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref_out), rtol=2e-5,
+                               atol=2e-5)
+    got = torch.autograd.grad(out, xs, _t(g))
+    names = ("xn", "residual", "k", "v", "wq", "bq", "wp", "bp")
+    for name, gg, r in zip(names, got, ref):
+        r = np.asarray(r)
+        assert np.isfinite(gg.numpy()).all(), name
+        bound = 1e-5 * np.abs(r).max() + 1e-7
+        err = np.abs(gg.numpy() - r).max()
+        assert err <= bound, f"{name}: max|dg| {err:.3g} > {bound:.3g}"
+    # the chunked backward gives the one-chunk result
+    old = sx.CHUNK_BYTES
+    try:
+        sx.CHUNK_BYTES = 2 * HEADS * 17 * operands[2].shape[1] * 4   # 17 rows a chunk
+        assert sx.backward_rows(b, HEADS, operands[2].shape[1]) == 17
+        out = fused_spatial_xattn(*xs, num_heads=HEADS,
+                                  text_bias=text_bias_from_mask(_t(mask)) if masked else None,
+                                  compat_reshape=compat)
+        chunked = torch.autograd.grad(out, xs, _t(g))
+    finally:
+        sx.CHUNK_BYTES = old
+    for name, a, r in zip(names, chunked, got):   # the sums over chunks differ in order
+        err, bound = float((a - r).abs().max()), 1e-6 * float(r.abs().max()) + 1e-7
+        assert err <= bound, f"{name} chunked: max|dg| {err:.3g} > {bound:.3g}"
+
+
+def test_spatial_backward_is_not_autograd_of_the_bf16_plain_version():
+    """bf16 operands: the Function's gradient is the fp32 body's, cast to
+    each input's dtype, not the autograd of the plain version's bf16
+    roundings (which would round the gradient at each rounding point)."""
+    from psg_tpu_torch.ops import spatial_xattn as sx
+
+    operands, mask, g = _spatial_grad_operands(False, True)
+    xs = [_t(a) for a in operands]
+    xs[0], xs[1], xs[4], xs[6] = (t.bfloat16() for t in (xs[0], xs[1], xs[4], xs[6]))
+    bias = text_bias_from_mask(_t(mask))
+
+    def grads(fn, inputs):
+        inputs = [t.detach().requires_grad_(True) for t in inputs]
+        return torch.autograd.grad(fn(*inputs), inputs, _t(g).bfloat16())
+
+    got = grads(lambda *a: fused_spatial_xattn(*a, num_heads=HEADS, text_bias=bias), xs)
+    fp32 = grads(lambda *a: fused_spatial_xattn(*a, num_heads=HEADS, text_bias=bias),
+                 [t.float() for t in xs])
+    rounded = grads(lambda xn, res, k, v, wq, bq, wp, bp: sx.spatial_xattn_plain(
+        xn, res, sx.split_heads(k, HEADS, False), sx.split_heads(v, HEADS, False), wq, bq,
+        wp, bp, key_bias=bias.reshape(2, -1), scale=0.125 ** 0.5), xs)
+    for a, f, r, x in zip(got, fp32, rounded, xs):
+        assert a.dtype == x.dtype
+        # the bf16 operands' values in fp32 give the same gradient, rounded once
+        torch.testing.assert_close(a, f.to(x.dtype), rtol=0, atol=0)
+    assert any(not torch.equal(a, r) for a, r in zip(got, rounded))
+
+
+def test_decoder_residual_reaches_the_spatial_block_in_its_own_dtype(monkeypatch):
+    """The decoder's fused sites hand the block its residual uncast: in bf16
+    the residual is bf16 already (a convolution's output), so the block adds
+    it in fp32 as the TPU kernel does and nothing is rounded on the way."""
+    from psg_tpu_torch.models import vae as tvae
+    from psg_tpu_torch.nn import attention
+
+    seen = []
+    real = attention.fused_spatial_xattn
+
+    def spy(xn, residual, *a, **kw):
+        seen.append((xn.dtype, residual.dtype))
+        return real(xn, residual, *a, **kw)
+
+    monkeypatch.setattr(attention, "fused_spatial_xattn", spy)
+    params = tvae.vae_init(torch.Generator().manual_seed(0), 8, 16, 0.25)
+    rng = np.random.RandomState(6)
+    latent = _t(rng.randn(1, 9, 9, 8).astype(np.float32))
+    text = _t(rng.randn(1, 5, 16).astype(np.float32))
+    with torch.no_grad():
+        img = tvae.vae_decode(params, latent, text, dtype=torch.bfloat16, image_size=64)
+    assert img.dtype == torch.bfloat16 and torch.isfinite(img.float()).all()
+    assert seen and all(d == (torch.bfloat16, torch.bfloat16) for d in seen)
 
 
 def test_launch_counters_untouched_on_cpu():

@@ -64,7 +64,6 @@ def test_train_stage2_then_serve(tmp_path, offline, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--stage", "1"], "stage 1"),
     (["--stage", "3"], "stage 3"),
     (["--stage", "0"], "stage 0"),
     (["--stage", "all"], "stage all"),

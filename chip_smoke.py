@@ -83,9 +83,34 @@ prints one JSON line per phase:
                 save_checkpoint; step wall, samples/s, peak memory, the
                 backward's chunk of rows, and launches against
                 ``predicted_stage1_launches``.
+8. ``stage3``   stage-3 training, after phase 6c.  (a) FlashSDPA against
+                plain autograd at CLIP ViT-B/32's vision shape [32,12,50,64]
+                (no bias), bf16 and fp32.  (b) A tiny stage-3 trainer on the
+                card against one on the CPU (fp32): a text-encoder step, the
+                switch, two joint steps; losses, the first step's gradients
+                (the decoder's nonzero, the UNet's zero), the parameters
+                (the UNet's weight decay included), to phase 7b's bounds.
+                (c) config/train_config.yaml at full width (batch 32, 215^2,
+                BERT-base, the full VAE and UNet, a random ViT-B/32 CLIP on
+                the WordPiece ids) on phase 6c's 128 sprites, the VAE and
+                text encoder from phase 7's best and the UNet from phase
+                6c's: train_epoch (3 steps) and validate in each phase with
+                save_checkpoint after each, generate_samples (DDIM 10); the
+                hub then resolves the final bundle and the serving generator
+                serves one DPM-10 request from it (``loaded=final-bundle``).
+                Step walls, samples/s, peak memory and seconds of each part,
+                the checkpoints' bytes, and launches against
+                ``predicted_stage3_launches``.
+9. ``stage0``   MLM pretraining of the text tower.  (a) A tiny MLM trainer
+                on the card against one on the CPU (BERT in fp32), 3 steps.
+                (b) BERT-base at full width (bf16, batch 64, text_len 128)
+                on the 128 sprites' captions and 8 variants each, one
+                epoch: step wall, samples/s, peak memory, launches (flash
+                only, one per BERT layer a step and a validation pass); the
+                best warm-starts a full-width stage-1 text template.
 Phase 6c runs after phase 7: its frozen VAE and text encoder come from
 phase 7's checkpoint, and serving resolves the pair.
-In phases 4-7 images must be finite and of the right shape, a seed must
+In phases 4-9 images must be finite and of the right shape, a seed must
 repeat its image, and every request's kernel launches must equal the count
 the model's structure predicts (``predicted_launches``); each phase's counts
 are set to 0 just before its requests and read just after them.
@@ -94,7 +119,7 @@ Phase 2 holds GroupNorm+SiLU at the decoder's and the UNet's sites and, at
 batch 1 and 4, at the VAE encoder's (107^2x32 with one channel a group,
 53^2x64, 27^2x128).  Then the card's name and power limit, the ``kernels``
 line (each kernel at its heaviest main-path shape, with its launches summed
-over phases 4-7, and the spatial kernel's gradient: its Function's forward
+over phases 4-9, and the spatial kernel's gradient: its Function's forward
 and backward at phase 7a's main case, launched in phase 7c's steps), and last
 ``{"ok": true, "device": {...}}``.  ``--json PATH`` also writes every
 phase's record to PATH.
@@ -102,10 +127,12 @@ phase's record to PATH.
 
 import argparse
 import functools
+import gc
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -157,6 +184,15 @@ def emit(phase, record):
 
 def fail(msg):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def release():
+    """Free what a phase left on the card.  A trainer whose step a phase
+    wraps sits in a reference cycle (the wrapper closes over its bound
+    step), which only the collector breaks; until then its parameters and
+    moments would count in the next phase's peak memory."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def card_line():
@@ -456,7 +492,8 @@ def main_path_cases():
                 ("unet 4^2 cross hd320", (8, 4, 16, 128, 320, True)),
                 ("vae 27^2 xattn hd64", (4, 8, 729, 128, 64, True)),
                 ("vae 27^2 xattn hd32", (4, 8, 729, 128, 32, True)),
-                ("vae 54^2 xattn hd16", (4, 8, 2916, 128, 16, True))):
+                ("vae 54^2 xattn hd16", (4, 8, 2916, 128, 16, True)),
+                ("clip vision L50 hd64", (*CLIP_VISION, False))):
             cases.append(flash_case(name, *shape, dtype))
         cases += spatial_cases(dtype)
     return cases
@@ -1057,7 +1094,7 @@ def phase_train_full_width(exp, corpus, vae_checkpoint):
         watch, tree.leaves(trainer.state.params)[::97]))
     tokenizer = trainer.tokenizer
     del trainer
-    torch.cuda.empty_cache()
+    release()
 
     vae_ckpt, diff_ckpt = hub.resolve_checkpoints(cfg, "smoke", allow_hub=False)
     if (vae_ckpt, diff_ckpt) != (str(vae_checkpoint), str(best)):
@@ -1094,7 +1131,7 @@ def phase_train_full_width(exp, corpus, vae_checkpoint):
             "generate_samples_s": sample_s, "sample_grid": grid.name,
             "peak_mem_gb": peak / 1e9, "skipped_batches": skipped,
             "watched_leaves_changed": f"{changed}/{len(watch)}",
-            "save_best_light_s": save_s, "checkpoint_gb": ckpt_gb,
+            "save_best_light_s": save_s, "checkpoint": str(best), "checkpoint_gb": ckpt_gb,
             "vae_checkpoint": str(vae_checkpoint), "serve_load_s": load_s,
             "serve_dpm10_s": serve_s, "loaded": loaded,
             "predicted_per_step": per_step, "launches_by_part": got,
@@ -1440,7 +1477,429 @@ def phase_stage1_full_width(exp, corpus):
            "checkpoint_gb": best.stat().st_size / 1e9, "predicted_per_step": per_step,
            "launches_by_part": got, "launches": launches}
     del trainer
+    release()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 8: stage-3 training (text encoder, then jointly with decoder and UNet)
+# ---------------------------------------------------------------------------
+
+# CLIP ViT-B/32's vision attention at the full-width batch: [B, H, 50, 64],
+# no bias (the class token and 7 x 7 patches of 224^2)
+CLIP_VISION = (32, 12, 50, 50, 64)
+S3_BATCH = 32
+
+
+def phase_stage3_gradients():
+    """(a) FlashSDPA (kernel forward, the plain version's autograd backward)
+    against plain autograd at CLIP's vision shape, bf16 and fp32."""
+    from psg_tpu_torch import ops
+    from psg_tpu_torch.ops import flash_attention
+
+    b, h, lq, lk, d = CLIP_VISION
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (_randn((b, h, n, d), i, dtype) for i, n in enumerate((lq, lk, lk)))
+        gy = _randn((b, lq, h, d), 3, dtype).transpose(1, 2)   # as the heads' merge
+        rec = _grad_case(lambda q, k, v: ops.sdpa(q, k, v),
+                         lambda q, k, v: flash_attention.sdpa_plain(q, k, v, scale=d ** -0.5),
+                         (q, k, v), gy, dtype)
+        cases.append({"kernel": "flash_attention", "name": f"clip vision L{lq} hd{d} b{b}",
+                      "dtype": str(dtype).replace("torch.", ""), **rec})
     torch.cuda.empty_cache()
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        fail("FlashSDPA at CLIP's vision shape disagrees with plain autograd: " + "; ".join(
+            f"{c['dtype']} err {c['max_abs_err']:.3g}" for c in bad))
+    return {"cases": cases}
+
+
+def _zero_leaf(g):
+    return float(g.abs().max()) == 0.0
+
+
+def phase_stage3_card_vs_cpu(tmp):
+    """(b) One tiny stage-3 trainer on the CPU (plain versions) and one on
+    the card (kernels), the same parameters, CLIP, batches and
+    reparameterize noises, fp32: a phase-1 step, the switch, two joint
+    steps.  Every step's loss; the first step's gradients; the parameters
+    after the 3 steps where the first step's gradient is determined (as in
+    phase 7b), and everywhere in the leaves whose gradient is 0 on both
+    devices (the encoder, the UNet: weight decay alone moves the UNet)."""
+    from psg_tpu_torch import ops
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.data.synthetic import write_sprite_corpus
+    from psg_tpu_torch.models import bridge
+    from psg_tpu_torch.train.stage3_final import FinalTrainer
+
+    corpus = write_sprite_corpus(Path(tmp) / "s3_tiny_corpus", n=12, seed=0, size=64)
+    cfg = _stage1_tiny_config(Path(tmp) / "s3_tiny_exp", corpus)
+    cfg.training.final_epochs, cfg.training.phase1_epochs = 2, 1
+    cpu = FinalTrainer(cfg, None, None, experiment_name="cpu", device="cpu")
+    card = FinalTrainer(cfg, None, None, experiment_name="card", device="cuda")
+    card.state = card._fresh_state(bridge.fit(card.state.params, cpu.state.params), step=0,
+                                   rng=card.state.rng)
+    card.clip_params = bridge.fit(card.clip_params, cpu.clip_params)
+    rs = np.random.RandomState(0)
+    batches = [next(iter(cpu.train_loader)) for _ in range(3)]
+    lat = (cfg.data.batch_size, cpu.latent_size, cpu.latent_size, cfg.model.latent_dim)
+    draws = [{"rep_noise": torch.from_numpy(rs.randn(*lat).astype(np.float32))}
+             for _ in batches]
+    ops.reset_launch_counts()
+    parts_cpu, g_cpu = cpu._grads(cpu._batch(batches[0]), draws[0])
+    parts_card, g_card = card._grads(card._batch(batches[0]), draws[0])
+    counts = ops.launch_counts()
+    grad_err, keep = 0.0, []
+    for (path, r), g in zip(tree.items(g_cpu), tree.leaves(g_card)):
+        g = g.float().cpu()
+        err = (g - r).abs().max().item()
+        bound_ = S1_GRAD_RTOL * r.abs().max().item() + 1e-6
+        grad_err = max(grad_err, err / bound_)
+        if not err <= bound_:
+            fail(f"stage 3 card vs CPU: gradient {path} max|dg| {err:.3g} > {bound_:.3g}")
+        if _zero_leaf(r) and _zero_leaf(g):
+            keep.append(torch.ones_like(r, dtype=torch.bool))
+        else:
+            keep.append(r.abs() >= 100 * (1e-4 * r.abs().max() + 1e-7))
+    if _zero_leaf(g_cpu["vae"]["decoder"]["final_conv"]["w"]) or not all(
+            _zero_leaf(g) for g in tree.leaves(g_cpu["unet"])):
+        fail("stage 3 card vs CPU: the decoder's gradient is 0 or the UNet's is not")
+    losses = [(float(parts_cpu["total_loss"]), float(parts_card["total_loss"]))]
+    cpu._apply_update(parts_cpu, g_cpu)
+    card._apply_update(parts_card, g_card)
+    cpu.switch_to_joint_training()
+    card.switch_to_joint_training()
+    for batch, d in zip(batches[1:], draws[1:]):
+        a = cpu._step(cpu._batch(batch), d)
+        b = card._step(card._batch(batch), d)
+        losses.append((float(a["total_loss"]), float(b["total_loss"])))
+    loss_rel = max(abs(b - a) / abs(a) for a, b in losses)
+    if not loss_rel <= S1_LOSS_RTOL:
+        fail(f"stage 3 card vs CPU: loss rel diff {loss_rel:.3g} > {S1_LOSS_RTOL}: {losses}")
+    param_err = 0.0
+    for a, r, m in zip(tree.leaves(card.state.params), tree.leaves(cpu.state.params), keep):
+        d = (a.detach().cpu() - r.detach())[m].abs()
+        param_err = max(param_err, d.max().item() if d.numel() else 0.0)
+    if not param_err <= S1_PARAM_ATOL:
+        fail(f"stage 3 card vs CPU: params after 3 steps {param_err:.3g} > {S1_PARAM_ATOL}")
+    if min(counts.values()) == 0:
+        fail(f"stage 3 card vs CPU: a kernel was not launched: {counts}")
+    return {"losses_cpu_card": losses, "loss_rel": loss_rel, "loss_rtol": S1_LOSS_RTOL,
+            "grad_err_over_bound": grad_err, "grad_rtol": S1_GRAD_RTOL,
+            "params_after_3_steps_max_abs_determined": param_err,
+            "params_atol": S1_PARAM_ATOL, "first_step_launches": counts}
+
+
+def predicted_stage3_launches(trainer):
+    """Forward launches of one stage-3 step or validation batch: a text
+    encode, a VAE encode (without gradient, still on the kernels), a decode,
+    and CLIP's vision tower (one flash attention per block; its text tower
+    carries a causal + padding bias and takes the plain version)."""
+    want = predicted_launches(trainer, 0, text_encodes=1, encodes=1, decodes=1)
+    want["flash_attention"] += trainer.clip_cfg.vision_layers
+    return want
+
+
+def _ckpt_files(directory):
+    return {p.name: p.stat().st_size for p in sorted(Path(directory).glob("*.ckpt"))}
+
+
+def phase_stage3_full_width(exp, corpus, vae_checkpoint, diffusion_checkpoint):
+    """(c) config/train_config.yaml at full width (bf16, batch 32, 215^2,
+    BERT-base, the full VAE and UNet, a random CLIP ViT-B/32 on the
+    WordPiece ids) on the 128 sprites of phases 6c and 7c, the VAE and text
+    encoder from phase 7's stage-1 best and the UNet from phase 6c's stage-2
+    best: train_epoch (3 steps) and validate in the text-encoder phase and
+    save_checkpoint; the switch; train_epoch and validate in the joint
+    phase, generate_samples (DDIM 10) and save_checkpoint; then the hub
+    resolves the final bundle (``extra.serve_prefer_final``) and the serving
+    generator serves one DPM-10 request from it.  Counts are set to 0 before
+    the first train_epoch and read after the request."""
+    from psg_tpu_torch import ops
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.core.config import load_config
+    from psg_tpu_torch.serve import hub
+    from psg_tpu_torch.serve.generator import PokemonGenerator
+    from psg_tpu_torch.train.stage3_final import FinalTrainer
+
+    cfg = load_config(CONFIG, [f"experiment_dir={exp}", f"data.csv_path={corpus[0]}",
+                               f"data.image_dir={corpus[1]}", "training.final_epochs=2",
+                               "training.phase1_epochs=1", "training.save_every=2",
+                               "extra.sample_steps=10", "extra.serve_prefer_final=true"])
+    if (cfg.model.compute_dtype, cfg.data.image_size, cfg.data.batch_size) != (
+            "bfloat16", 215, S3_BATCH):
+        fail(f"{CONFIG.name} is not the full-width bf16 batch-32 configuration")
+    disk = shutil.disk_usage(exp)
+    release()
+    allocated_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    trainer = FinalTrainer(cfg, vae_checkpoint, diffusion_checkpoint, experiment_name="smoke",
+                           device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if len(trainer.train_loader) != FULL_STEPS:
+        fail(f"the full-width epoch has {len(trainer.train_loader)} steps, not {FULL_STEPS}")
+    if trainer.clip_cfg.vision_width != 768 or trainer.clip_bpe is not None:
+        fail(f"stage 3 is not on ViT-B/32 with WordPiece ids: {trainer.clip_cfg}")
+    leaves = tree.leaves(trainer.state.params)
+    n_params = {k: sum(t.numel() for t in tree.leaves(v))
+                for k, v in trainer.state.params.items()}
+    n_params["clip"] = sum(t.numel() for t in tree.leaves(trainer.clip_params))
+    watch = {k: [t.detach().clone() for t in tree.leaves(v)[::13]]
+             for k, v in (("text", trainer.state.params["text"]),
+                          ("decoder", trainer.state.params["vae"]["decoder"]),
+                          ("unet", trainer.state.params["unet"]))}
+
+    step_s, step_loss = [], []
+    orig_step = trainer._step
+
+    def timed_step(batch, draws=None):
+        t = time.perf_counter()
+        parts = orig_step(batch, draws)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        step_loss.append(float(parts["total_loss"]))
+        return parts
+
+    trainer._step = timed_step
+    per_step = predicted_stage3_launches(trainer)
+    n_val = len(trainer.val_loader)
+    want, got, secs, peaks = {}, {}, {}, {}
+
+    def part(name, fn, predicted=None):
+        before = ops.launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t
+        peaks[name] = torch.cuda.max_memory_allocated() / 1e9
+        got[name] = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        if predicted is not None:
+            want[name] = predicted
+        return out
+
+    def changed(key):
+        now = {"text": trainer.state.params["text"],
+               "decoder": trainer.state.params["vae"]["decoder"],
+               "unet": trainer.state.params["unet"]}[key]
+        return sum(not torch.equal(a, b.detach())
+                   for a, b in zip(watch[key], tree.leaves(now)[::13]))
+
+    ops.reset_launch_counts()          # this path's counted run starts here
+    st1 = part("train_epoch text_encoder",
+               lambda: trainer.train_epoch(0), {k: FULL_STEPS * v for k, v in per_step.items()})
+    moved_phase1 = {k: changed(k) for k in watch}
+    val1 = part("validate text_encoder", lambda: trainer.validate(0),
+                {k: n_val * v for k, v in per_step.items()})
+    skipped = trainer.skipped_batches()      # the switch starts a new count
+    wrote1 = part("save_checkpoint text_encoder", lambda: trainer.save_checkpoint(0, val1))
+    files1 = _ckpt_files(trainer.ckpt.dir)
+    part("switch_to_joint_training", trainer.switch_to_joint_training)
+    st2 = part("train_epoch joint", lambda: trainer.train_epoch(1),
+               {k: FULL_STEPS * v for k, v in per_step.items()})
+    moved_joint = {k: changed(k) for k in watch}
+    val2 = part("validate joint", lambda: trainer.validate(1),
+                {k: n_val * v for k, v in per_step.items()})
+    grid = part("generate_samples", lambda: trainer.generate_samples(1),
+                predicted_launches(trainer, int(cfg.extra["sample_steps"])))
+    wrote2 = part("save_checkpoint joint", lambda: trainer.save_checkpoint(1, val2))
+    files2 = {k: v for k, v in _ckpt_files(trainer.ckpt.dir).items()
+              if files1.get(k) != v}
+    skipped += trainer.skipped_batches()
+    tokenizer, phase, opt_groups = trainer.tokenizer, trainer.phase, sorted(
+        trainer.state.opt_state["groups"])
+    del trainer, leaves
+    release()
+
+    vae_ckpt, diff_ckpt = hub.resolve_checkpoints(cfg, "smoke", allow_hub=False)
+    best = Path(exp) / "smoke_final" / "checkpoints" / "final_best_model.ckpt"
+    if (vae_ckpt, diff_ckpt) != (str(best), str(best)):
+        fail(f"hub resolved {vae_ckpt}, {diff_ckpt}, not the final bundle {best}")
+    t0 = time.perf_counter()
+    gen = PokemonGenerator(cfg, vae_checkpoint=vae_ckpt, diffusion_checkpoint=diff_ckpt,
+                           tokenizer=tokenizer, sampler="dpmpp", device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    img = part("serve DPM-10", lambda: np.asarray(
+        gen.generate_from_text(PROMPTS[0], 10, seed=3), np.float32), predicted_launches(gen, 10))
+    launches = ops.launch_counts()     # ... and ends here
+    for name in want:
+        if got[name] != want[name]:
+            fail(f"stage 3 {name}: kernel launches {got[name]} != predicted {want[name]}")
+    if not (np.isfinite(step_loss).all() and np.isfinite(val1) and np.isfinite(val2)):
+        fail(f"stage 3: non-finite loss: steps {step_loss}, val {val1}, {val2}")
+    if skipped:
+        fail(f"stage 3: {skipped} skipped steps")
+    if not wrote1 or not files2:
+        fail(f"stage 3: save_checkpoint wrote {files1} then {files2}")
+    if phase != "joint" or opt_groups != ["decoder", "text", "unet"]:
+        fail(f"stage 3 did not switch: phase {phase}, groups {opt_groups}")
+    if not (moved_phase1["text"] and not moved_phase1["decoder"] and not moved_phase1["unet"]
+            and moved_joint["decoder"] and moved_joint["unet"]):
+        fail(f"stage 3: params moved {moved_phase1} after phase 1, {moved_joint} after joint")
+    if gen.loaded != "final-bundle" or img.shape != (215, 215, 3) or not np.isfinite(img).all():
+        fail(f"serving the final bundle: loaded={gen.loaded}, image {img.shape}")
+    loaded = gen.loaded
+    del gen
+    torch.cuda.empty_cache()
+    return {"params": n_params, "init_s": init_s, "step_s": step_s,
+            "step_wall_after_first_s": {"text_encoder": float(np.mean(step_s[1:FULL_STEPS])),
+                                        "joint": float(np.mean(step_s[FULL_STEPS + 1:]))},
+            "samples_per_s": {"text_encoder": S3_BATCH / float(np.mean(step_s[1:FULL_STEPS])),
+                              "joint": S3_BATCH / float(np.mean(step_s[FULL_STEPS + 1:]))},
+            "step_loss": step_loss,
+            "train": {"text_encoder": st1, "joint": st2}, "val_loss": [val1, val2],
+            "seconds_by_part": secs, "peak_mem_gb_by_part": peaks,
+            "sample_grid": grid.name, "skipped_batches": skipped,
+            "watched_leaves_changed": {"after_text_encoder": moved_phase1,
+                                       "after_joint": moved_joint},
+            "disk_free_gb_before": disk.free / 1e9,
+            "allocated_gb_before": allocated_before / 1e9,
+            "checkpoints_text_encoder": files1, "checkpoints_joint": files2,
+            "serve_load_s": load_s, "loaded": loaded,
+            "predicted_per_step": per_step, "launches_by_part": got, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: stage-0 MLM pretraining of the text tower
+# ---------------------------------------------------------------------------
+
+
+def phase_stage0_card_vs_cpu(tmp):
+    """(a) One tiny MLM trainer on the CPU and one on the card, the same
+    parameters, minibatches and masks, BERT in fp32 (the trainers' loss
+    runs bf16 by default; fp32 holds the card to phase 7b's bounds), 3
+    steps: every step's loss, the first step's gradients, the parameters
+    after 3 steps where the first gradient is determined."""
+    from psg_tpu_torch import ops
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.data.synthetic import write_sprite_corpus
+    from psg_tpu_torch.models import bridge
+    from psg_tpu_torch.train.stage0_mlm import MLMPretrainer
+
+    corpus = write_sprite_corpus(Path(tmp) / "s0_tiny_corpus", n=20, seed=3, size=64)
+    cfg = _stage1_tiny_config(Path(tmp) / "s0_tiny_exp", corpus)
+    cfg.extra = {"mlm_epochs": 2, "mlm_batch": 8, "mlm_caption_augment": 2}
+    cpu = MLMPretrainer(cfg, experiment_name="cpu", device="cpu")
+    card = MLMPretrainer(cfg, experiment_name="card", device="cuda")
+    cpu.compute_dtype = card.compute_dtype = None
+    card.state.params = tree.map(lambda t: t.requires_grad_(True),
+                                 bridge.fit(card.state.params, cpu.state.params))
+    card.state.opt_state = card.tx.init(card.state.params)
+    rs = np.random.RandomState(0)
+    n, shape = cpu.train_rows[0].shape[0], (cpu.batch, cfg.data.text_len)
+    draws = [{"index": torch.from_numpy(rs.randint(0, n, cpu.batch)),
+              "u_select": torch.from_numpy(rs.uniform(size=shape).astype(np.float32)),
+              "u_kind": torch.from_numpy(rs.uniform(size=shape).astype(np.float32)),
+              "random_ids": torch.from_numpy(rs.randint(5, cpu.tokenizer.vocab_size, shape))}
+             for _ in range(3)]
+    ops.reset_launch_counts()
+    loss_cpu, g_cpu = cpu._grads(draws[0])
+    loss_card, g_card = card._grads(draws[0])
+    counts = ops.launch_counts()
+    grad_err, keep = 0.0, []
+    for (path, r), g in zip(tree.items(g_cpu), tree.leaves(g_card)):
+        err = (g.float().cpu() - r).abs().max().item()
+        bound_ = S1_GRAD_RTOL * r.abs().max().item() + 1e-6
+        grad_err = max(grad_err, err / bound_)
+        if not err <= bound_:
+            fail(f"stage 0 card vs CPU: gradient {path} max|dg| {err:.3g} > {bound_:.3g}")
+        keep.append(r.abs() >= 100 * (1e-4 * r.abs().max() + 1e-7))
+    losses = [(float(loss_cpu), float(loss_card))]
+    for t, g in ((cpu, g_cpu), (card, g_card)):
+        t.tx.update(t.state.params, g, t.state.opt_state)
+        t.state.step += 1
+    for d in draws[1:]:
+        losses.append((float(cpu._step(d)["loss"]), float(card._step(d)["loss"])))
+    loss_rel = max(abs(b - a) / abs(a) for a, b in losses)
+    if not loss_rel <= S1_LOSS_RTOL:
+        fail(f"stage 0 card vs CPU: loss rel diff {loss_rel:.3g} > {S1_LOSS_RTOL}: {losses}")
+    param_err = 0.0
+    for a, r, m in zip(tree.leaves(card.state.params), tree.leaves(cpu.state.params), keep):
+        d = (a.detach().cpu() - r.detach())[m].abs()
+        param_err = max(param_err, d.max().item() if d.numel() else 0.0)
+    if not param_err <= S1_PARAM_ATOL:
+        fail(f"stage 0 card vs CPU: params after 3 steps {param_err:.3g} > {S1_PARAM_ATOL}")
+    if counts["flash_attention"] == 0:
+        fail(f"stage 0 card vs CPU: the flash kernel was not launched: {counts}")
+    return {"losses_cpu_card": losses, "loss_rel": loss_rel, "loss_rtol": S1_LOSS_RTOL,
+            "grad_err_over_bound": grad_err, "grad_rtol": S1_GRAD_RTOL,
+            "params_after_3_steps_max_abs_determined": param_err,
+            "params_atol": S1_PARAM_ATOL, "first_step_launches": counts}
+
+
+def phase_stage0_full_width(exp, corpus):
+    """(b) BERT-base at full width (bf16, batch 64, text_len 128) on the 128
+    sprites' captions and 8 variants of each, one epoch: the step wall,
+    samples/s, peak memory and launches (one flash attention per BERT layer
+    a step and a validation pass, nothing else); the best loads into a
+    full-width stage-1 text template through load_text_init.  Counts are set
+    to 0 before the epoch and read after the validation."""
+    from psg_tpu_torch import ops
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.core.config import load_config
+    from psg_tpu_torch.models.text_encoder import text_encoder_init
+    from psg_tpu_torch.train.stage0_mlm import MLMPretrainer, load_text_init
+
+    cfg = load_config(CONFIG, [f"experiment_dir={exp}", f"data.csv_path={corpus[0]}",
+                               f"data.image_dir={corpus[1]}", "extra.mlm_epochs=1"])
+    release()
+    allocated_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    trainer = MLMPretrainer(cfg, experiment_name="smoke", device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if (trainer.batch, cfg.data.text_len, trainer.bert_cfg.num_layers) != (64, 128, 12):
+        fail("stage 0 is not BERT-base at batch 64, text_len 128")
+    step_s, step_loss = [], []
+    orig_step = trainer._step
+
+    def timed_step(draws=None):
+        t = time.perf_counter()
+        out = orig_step(draws)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        step_loss.append(float(out["loss"]))
+        return out
+
+    trainer._step = timed_step
+    spe = trainer.steps_per_epoch
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()          # this path's counted run starts here
+    t0 = time.perf_counter()
+    best = trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = ops.launch_counts()     # ... and ends here
+    per_step = {"group_norm_silu": 0, "flash_attention": trainer.bert_cfg.num_layers,
+                "spatial_xattn": 0}
+    want = {k: (spe + 1) * v for k, v in per_step.items()}   # the steps and one validation
+    if launches != want:
+        fail(f"stage 0: kernel launches {launches} != predicted {want}")
+    if not (best.exists() and np.isfinite(step_loss).all()):
+        fail(f"stage 0: best {best}, losses {step_loss}")
+    m = cfg.model
+    template = text_encoder_init(torch.Generator(device=trainer.device).manual_seed(0),
+                                 trainer.bert_cfg, m.text_embedding_dim)
+    warm = load_text_init(best, template)
+    if not all(torch.equal(a, b.detach()) for a, b in zip(
+            tree.leaves(warm), tree.leaves(trainer.state.params["text"]))):
+        fail("stage 0: the best does not warm-start a stage-1 text template")
+    rec = {"params": sum(t.numel() for t in tree.leaves(trainer.state.params)),
+           "rows": {"train": int(trainer.train_rows[0].shape[0]),
+                    "val": int(trainer.val_rows[0].shape[0])},
+           "init_s": init_s, "steps": spe, "step_s": step_s,
+           "step_wall_after_first_s": float(np.mean(step_s[1:])),
+           "samples_per_s": trainer.batch / float(np.mean(step_s[1:])),
+           "step_loss": step_loss, "train_s": train_s,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "allocated_gb_before": allocated_before / 1e9,
+           "checkpoint_gb": best.stat().st_size / 1e9, "predicted_per_step": per_step,
+           "launches": launches}
+    del trainer, warm, template
+    release()
     return rec
 
 
@@ -1566,6 +2025,21 @@ def main(argv=None):
         emit("train", {"card": card, "gradients": grads, "card_vs_cpu": tiny,
                        "full_width": full, "full_width_seconds": time.perf_counter() - t,
                        "seconds": t6 + time.perf_counter() - t})
+        t = time.perf_counter()
+        s3_grads = phase_stage3_gradients()
+        s3_tiny = phase_stage3_card_vs_cpu(tmp)
+        t_full = time.perf_counter()
+        s3 = phase_stage3_full_width(exp, corpus, s1["checkpoint"], full["checkpoint"])
+        emit("stage3", {"card": card, "gradients": s3_grads, "card_vs_cpu": s3_tiny,
+                        "full_width": s3, "full_width_seconds": time.perf_counter() - t_full,
+                        "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        s0_tiny = phase_stage0_card_vs_cpu(tmp)
+        t_full = time.perf_counter()
+        s0 = phase_stage0_full_width(exp, corpus)
+        emit("stage0", {"card": card, "card_vs_cpu": s0_tiny, "full_width": s0,
+                        "full_width_seconds": time.perf_counter() - t_full,
+                        "seconds": time.perf_counter() - t})
 
     by_name = {(r["kernel"], r["name"], r["dtype"]): r for r in results}
     kernels = []
@@ -1573,8 +2047,8 @@ def main(argv=None):
         r = by_name[(kname, case, "bfloat16")]
         kernels.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaces, "shape": case, "dtype": "bfloat16",
-                        "launches": (serve["launches"][kname] + paths["launches"][kname]
-                                     + s1["launches"][kname] + full["launches"][kname]),
+                        "launches": sum(ph["launches"][kname] for ph in (
+                            serve, paths, s1, full, s3, s0)),
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

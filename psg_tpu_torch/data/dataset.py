@@ -179,6 +179,11 @@ class PokemonDataset:
         self.text_ids_aug = ids.reshape(n, k, -1)
         self.text_mask_aug = mask.reshape(n, k, -1)
 
+    def set_clip_tokenizer(self, bpe, length: int = 77) -> None:
+        """Pre-tokenize the captions with CLIP's BPE (the stage-3 loss on a
+        pretrained CLIP); batches gain ``clip_ids`` / ``clip_mask``."""
+        self.clip_ids, self.clip_mask = bpe.encode_batch(self.full_descriptions, length)
+
     def __len__(self) -> int:
         return len(self.rows)
 

@@ -1,22 +1,26 @@
 """Training CLI (port of ``psg_tpu/train/cli.py``): the JAX CLI's flags plus
 ``--device``.
 
-    python -m psg_tpu_torch.train.cli --stage 1|2 [--config config/train_config.yaml]
-        [--vae-checkpoint PATH] [--experiment-name NAME] [--resume PATH]
-        [--override section.key=value ...] [--device cpu]
+    python -m psg_tpu_torch.train.cli [--stage 0|1|2|3|all] [--config config/train_config.yaml]
+        [--vae-checkpoint PATH] [--diffusion-checkpoint PATH] [--experiment-name NAME]
+        [--resume PATH] [--override section.key=value ...] [--device cpu]
     python -m psg_tpu_torch.train.cli --data-stats
 
-Stages 1 (``train/stage1_vae.py``) and 2 (``train/stage2_diffusion.py``) and
-``--data-stats`` are ported.  Stages 0, 3 and ``all``, and
-``--use-diffusers``, raise ``NotImplementedError`` naming the ROADMAP item
-that ports them, so that nothing runs half a pipeline.  Runs on the card
-unless ``--device cpu``.
+``all`` (the default) runs stages 1 -> 2 -> 3, the reference's three-stage
+contract; each stage's best checkpoint feeds the next.  Stage 0 (MLM
+pretraining of the text tower, ``train/stage0_mlm.py``) is not part of
+``all``: its best warm-starts stage 1 through ``--override
+extra.text_init=PATH``.  ``--use-diffusers`` (the SD-1.5 UNet for stage 2)
+raises ``NotImplementedError`` naming the ROADMAP item that ports it.  Runs
+on the card unless ``--device cpu``.
 
-Stage 1 writes ``{experiment_dir}/{name}_vae/checkpoints/vae_best_model.ckpt``.
-Stage 2 reads its frozen VAE and text encoder from ``--vae-checkpoint``,
-which must exist, else from that stage-1 path when it exists, else draws
-them from the config's seed (and says so).  ``--resume`` resumes the stage
-that runs.
+Checkpoints follow the reference's paths:
+``{experiment_dir}/{name}_{vae,diffusion,final}/checkpoints/{stage}_best_model.ckpt``.
+Stage 2 reads its frozen VAE and text encoder from ``--vae-checkpoint``
+(which must exist), else from stage 1's path when it exists, else draws
+them from the config's seed (and says so); stage 3 reads stage 1's and
+stage 2's the same way (``--vae-checkpoint``, ``--diffusion-checkpoint``).
+``--resume`` resumes the stage that ``--stage`` names.
 """
 
 from __future__ import annotations
@@ -26,12 +30,6 @@ import sys
 from pathlib import Path
 
 from psg_tpu_torch.core.config import load_config
-
-_NOT_PORTED = {
-    "0": "stage 0 (MLM pretraining, psg_tpu/train/stage0_mlm.py): ROADMAP Queue A item 5",
-    "3": "stage 3 (final, psg_tpu/train/stage3_final.py): ROADMAP Queue A item 3",
-    "all": "--stage all needs stage 3 (ROADMAP Queue A item 3)",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -75,33 +73,59 @@ def main(argv=None) -> int:
             print(f"{k}: {v}")
         return 0
 
-    if args.stage in _NOT_PORTED:
-        raise NotImplementedError(f"not ported yet: {_NOT_PORTED[args.stage]}")
-    if args.use_diffusers:
+    name = args.experiment_name
+    run_all = args.stage == "all"
+
+    def stage_input(given, stage: str):
+        """The named checkpoint, else this experiment's stage path if it exists."""
+        if given is not None:
+            return given
+        path = stage_ckpt(cfg, name, stage)
+        return str(path) if path.exists() else None
+
+    if args.stage == "0":
+        from psg_tpu_torch.train.stage0_mlm import MLMPretrainer
+
+        best = MLMPretrainer(cfg, experiment_name=name, device=args.device).train()
+        print(f"stage 0 complete: {best}")
+        print(f"warm-start stage 1 with --override extra.text_init={best}")
+        return 0
+    if args.use_diffusers and args.stage in ("2", "all"):
         raise NotImplementedError("not ported yet: --use-diffusers (the SD-UNet stage 2, "
                                   "psg_tpu/train/stage2_sd.py): ROADMAP Queue A item 6")
 
-    if args.stage == "1":
+    vae_ckpt, diff_ckpt = args.vae_checkpoint, args.diffusion_checkpoint
+    if run_all or args.stage == "1":
         from psg_tpu_torch.train.stage1_vae import VAETrainer
 
-        t = VAETrainer(cfg, experiment_name=args.experiment_name, device=args.device)
-        if args.resume:
+        t = VAETrainer(cfg, experiment_name=name, device=args.device)
+        if args.resume and args.stage == "1":
+            t.load_checkpoint(args.resume)
+        vae_ckpt = str(t.train())
+        print(f"stage 1 complete: {vae_ckpt}")
+        del t
+
+    if run_all or args.stage == "2":
+        from psg_tpu_torch.train.stage2_diffusion import DiffusionTrainer
+
+        t = DiffusionTrainer(cfg, vae_checkpoint_path=stage_input(vae_ckpt, "vae"),
+                             experiment_name=name, device=args.device)
+        if args.resume and args.stage == "2":
+            t.load_checkpoint(args.resume)
+        diff_ckpt = str(t.train())
+        print(f"stage 2 complete: {diff_ckpt}")
+        del t
+
+    if run_all or args.stage == "3":
+        from psg_tpu_torch.train.stage3_final import FinalTrainer
+
+        t = FinalTrainer(cfg, vae_checkpoint_path=stage_input(vae_ckpt, "vae"),
+                         diffusion_checkpoint_path=stage_input(diff_ckpt, "diffusion"),
+                         experiment_name=name, device=args.device)
+        if args.resume and args.stage == "3":
             t.load_checkpoint(args.resume)
         best = t.train()
-        print(f"stage 1 complete: {best}")
-        return 0
-
-    from psg_tpu_torch.train.stage2_diffusion import DiffusionTrainer
-
-    vae_ckpt = args.vae_checkpoint
-    if vae_ckpt is None and stage_ckpt(cfg, args.experiment_name, "vae").exists():
-        vae_ckpt = str(stage_ckpt(cfg, args.experiment_name, "vae"))
-    t = DiffusionTrainer(cfg, vae_checkpoint_path=vae_ckpt,
-                         experiment_name=args.experiment_name, device=args.device)
-    if args.resume:
-        t.load_checkpoint(args.resume)
-    best = t.train()
-    print(f"stage 2 complete: {best}")
+        print(f"stage 3 complete: {best}")
     return 0
 
 

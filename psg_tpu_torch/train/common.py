@@ -13,10 +13,13 @@ from psg_tpu_torch.text.tokenizer import WordPieceTokenizer
 
 
 def device_batch(batch, device):
-    """A loader batch's image, ids and mask as tensors on ``device``."""
-    return {"image": torch.from_numpy(np.asarray(batch["image"])).to(device),
-            "text_ids": torch.from_numpy(np.asarray(batch["text_ids"])).long().to(device),
-            "text_mask": torch.from_numpy(np.asarray(batch["text_mask"])).long().to(device)}
+    """A loader batch's image, ids and mask (and CLIP's BPE ids and mask
+    where the batch has them) as tensors on ``device``."""
+    out = {"image": torch.from_numpy(np.asarray(batch["image"])).to(device)}
+    for k in ("text_ids", "text_mask", "clip_ids", "clip_mask"):
+        if k in batch:
+            out[k] = torch.from_numpy(np.asarray(batch[k])).long().to(device)
+    return out
 
 
 def get_tokenizer(cfg, stage_dir: Path, corpus=None) -> WordPieceTokenizer:

@@ -2,11 +2,13 @@
 """Where one full-width training step of psg_tpu_torch spends its time on
 the card.
 
-    python3 scripts/torch_profile_train.py [--stage 1|2] [--steps 3] [--trace PATH]
+    python3 scripts/torch_profile_train.py [--stage 0|1|2|3] [--steps 3] [--trace PATH]
 
 Builds the trainer of the stage at config/train_config.yaml's full width
 (bf16, BERT-base, full VAE, 215x215, batch 32; stage 2 with the UNet
-320/640/1280/1280, stage 1 with the VGG16 perceptual loss) with random
+320/640/1280/1280, stage 1 with the VGG16 perceptual loss, stage 3 with the
+UNet and a CLIP ViT-B/32 on the WordPiece ids; stage 0, MLM pretraining of
+BERT-base, at batch 64 on the captions and 8 variants of each) with random
 weights from the config's seed over 128 sprites made from a seed (in a
 temporary directory), takes one warm-up step, then for the whole step and
 for each of its parts prints one JSON line: host wall time ending in a sync
@@ -23,7 +25,12 @@ Parts.  Stage 2: the forward to the loss (frozen text and VAE encoders,
 q_sample, the UNet), the backward, the optimizer and the EMA.  Stage 1: the
 text encode, the VAE encode (and reparameterize), the decode, the VGG16
 perceptual loss, each with autograd recording as in the step; the backward;
-the optimizer.  Needs one CUDA card; imports no JAX.
+the optimizer.  Stage 3: the text encode, the VAE encode (no gradient) and
+reparameterize, the decode, CLIP's image and text towers and the alignment
+loss, the backward, the optimizer of the text-encoder phase; then, after
+the switch, the joint phase's step and optimizer (text, decoder and UNet).
+Stage 0: the forward to the loss (masking, BERT in bf16, the tied head),
+the backward, the optimizer.  Needs one CUDA card; imports no JAX.
 """
 
 import argparse
@@ -207,6 +214,101 @@ def profile_stage1(cfg, args):
     return bs, step, tr.skipped_batches()
 
 
+def profile_stage3(cfg, args):
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.models.clip import clip_alignment_loss
+    from psg_tpu_torch.models.text_encoder import text_encoder_apply
+    from psg_tpu_torch.models.unet import text_bias_from_mask
+    from psg_tpu_torch.models.vae import reparameterize, vae_decode, vae_encoder_apply
+    from psg_tpu_torch.train.stage3_final import FinalTrainer
+
+    tr = FinalTrainer(cfg, None, None, experiment_name="profile", device="cuda")
+    batch = tr._batch(next(iter(tr.train_loader)))
+    bs = batch["image"].shape[0]
+    params = {k: sum(t.numel() for t in tree.leaves(v)) for k, v in tr.state.params.items()}
+    params["clip"] = sum(t.numel() for t in tree.leaves(tr.clip_params))
+    print(json.dumps({"stage": 3, "batch": bs, "params": params,
+                      "clip": tr.clip_cfg._asdict()}), flush=True)
+    tr._step(batch)                        # warm-up: cuDNN and cuBLAS pick kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st, dt = tr.state, tr.compute_dtype
+    p = st.params
+    leaves = tree.leaves(p)
+    bias = text_bias_from_mask(batch["text_mask"])
+
+    def text(_):
+        return text_encoder_apply(p["text"], batch["text_ids"], batch["text_mask"],
+                                  tr.bert_cfg, dtype=dt)
+
+    @torch.no_grad()
+    def encode(_):
+        mu, logvar = vae_encoder_apply(p["vae"]["encoder"], batch["image"], dtype=dt)
+        return reparameterize(st.rng, mu, logvar)
+
+    def decode(_):
+        return vae_decode(p["vae"], latent.to(emb.dtype), emb, text_bias=bias, dtype=dt,
+                          image_size=cfg.data.image_size)
+
+    def clip(_):
+        return clip_alignment_loss(tr.clip_params, recon, batch["text_ids"],
+                                   batch["text_mask"], tr.clip_cfg, dtype=dt)
+
+    def forward(_):
+        return tr._forward_loss(p, batch, st.rng)[0]
+
+    step = measure(f"train step, text-encoder phase (batch {bs})", lambda _: tr._step(batch),
+                   args.steps, trace=args.trace)
+    emb = measure_out("text encode", text, args.steps)
+    latent = measure_out("VAE encode (no grad) + reparameterize", encode, args.steps)
+    recon = measure_out("decode", decode, args.steps)
+    measure("CLIP image + text + alignment loss", clip, args.steps)
+    del emb, latent, recon
+    measure("backward", lambda loss: torch.autograd.grad(loss, leaves, allow_unused=True),
+            args.steps, setup=lambda: forward(None))
+    measure("optimizer, text-encoder phase", lambda g: tr.tx.update(p, g, st.opt_state),
+            args.steps, setup=lambda: tr._grads(batch)[1])
+    tr.switch_to_joint_training()
+    tr._step(batch)                        # the joint optimizer's first step
+    torch.cuda.synchronize()
+    joint = measure(f"train step, joint phase (batch {bs})", lambda _: tr._step(batch),
+                    args.steps)
+    measure("optimizer, joint phase", lambda g: tr.tx.update(p, g, tr.state.opt_state),
+            args.steps, setup=lambda: tr._grads(batch)[1])
+    print(json.dumps({"joint_samples_per_s": bs / (joint["wall_ms"] / 1e3)}), flush=True)
+    return bs, step, tr.skipped_batches()
+
+
+def profile_stage0(cfg, args):
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.train.stage0_mlm import MLMPretrainer
+
+    tr = MLMPretrainer(cfg, experiment_name="profile", device="cuda")
+    bs, st = tr.batch, tr.state
+    print(json.dumps({"stage": 0, "batch": bs, "text_len": cfg.data.text_len,
+                      "rows": int(tr.train_rows[0].shape[0]),
+                      "params": sum(t.numel() for t in tree.leaves(st.params))}), flush=True)
+    tr._step()                             # warm-up: cuBLAS picks kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    leaves = tree.leaves(st.params)
+    index = torch.randint(0, tr.train_rows[0].shape[0], (bs,), generator=st.rng,
+                          device="cuda")
+    ids, attn = (r[index] for r in tr.train_rows)
+
+    def forward(_):
+        return tr._loss(st.params, ids, attn, st.rng)
+
+    step = measure(f"train step (batch {bs})", lambda _: tr._step(), args.steps,
+                   trace=args.trace)
+    measure("forward to the loss", forward, args.steps)
+    measure("backward", lambda loss: torch.autograd.grad(loss, leaves, allow_unused=True),
+            args.steps, setup=lambda: forward(None))
+    measure("optimizer", lambda g: tr.tx.update(st.params, g, st.opt_state), args.steps,
+            setup=lambda: tr._grads()[1])
+    return bs, step, 0
+
+
 def measure_out(name, fn, reps):
     """``measure``, then one more call whose output the next part takes."""
     measure(name, fn, reps)
@@ -217,7 +319,7 @@ def measure_out(name, fn, reps):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--stage", type=int, default=2, choices=(1, 2))
+    ap.add_argument("--stage", type=int, default=2, choices=(0, 1, 2, 3))
     ap.add_argument("--steps", type=int, default=3, help="unprofiled runs per part")
     ap.add_argument("--trace", help="write the whole step's chrome trace here")
     args = ap.parse_args()
@@ -243,7 +345,8 @@ def main():
                           [f"experiment_dir={Path(tmp) / 'exp'}", f"data.csv_path={csv}",
                            f"data.image_dir={images}"])
         time_backwards()
-        bs, step, skipped = (profile_stage1 if args.stage == 1 else profile_stage2)(cfg, args)
+        bs, step, skipped = {0: profile_stage0, 1: profile_stage1, 2: profile_stage2,
+                             3: profile_stage3}[args.stage](cfg, args)
         print(json.dumps({"samples_per_s": bs / (step["wall_ms"] / 1e3),
                           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                           "skipped_batches": skipped}), flush=True)

@@ -120,7 +120,7 @@ def test_flash_attention_kernel(card, dtype, b, h, lq, lk, d, masked):
     _close(got, ref, dtype)
 
 
-# bf16 flash attention at the 11 main-path shapes of chip_smoke.py phase 2
+# bf16 flash attention at the 12 main-path shapes of chip_smoke.py phase 2
 @pytest.mark.parametrize("b,h,lq,lk,d,masked", [
     (4, 12, 128, 128, 64, True),    # BERT-base
     (1, 12, 128, 128, 64, True),    # BERT-base, one prompt
@@ -133,6 +133,7 @@ def test_flash_attention_kernel(card, dtype, b, h, lq, lk, d, masked):
     (4, 8, 729, 128, 64, True),     # VAE 27^2, C 512
     (4, 8, 729, 128, 32, True),     # VAE 27^2, C 256
     (4, 8, 2916, 128, 16, True),    # VAE 54^2, C 128
+    (32, 12, 50, 50, 64, False),    # CLIP ViT-B/32 vision (stage 3), no bias
 ])
 def test_flash_attention_main_path_bf16(card, b, h, lq, lk, d, masked):
     test_flash_attention_kernel(card, torch.bfloat16, b, h, lq, lk, d, masked)
@@ -363,6 +364,7 @@ def test_group_norm_silu_gradients(card, dtype, b, s, c):
     (32, 4, 196, 196, 160, False),   # UNet 14^2 self-attention
     (32, 4, 196, 128, 160, True),    # ... cross-attention on the text keys
     (32, 4, 49, 128, 320, True),     # UNet 7^2 cross-attention
+    (32, 12, 50, 50, 64, False),     # CLIP ViT-B/32 vision (stage 3), no bias
 ])
 def test_flash_attention_gradients(card, dtype, b, h, lq, lk, d, masked):
     """FlashSDPA on the kernel (output a view of [B,Lq,H,D] memory) against

@@ -37,9 +37,23 @@ def _imported_roots(path: Path):
 
 def test_port_modules_are_all_found():
     for name in ("serve.generator", "serve.app", "serve.hub", "data.dataset",
-                 "data.synthetic", "eval.metrics", "ops.spatial_xattn"):
+                 "data.synthetic", "eval.metrics", "ops.spatial_xattn", "text.bpe",
+                 "models.clip", "train.stage3_final", "train.stage0_mlm"):
         assert f"psg_tpu_torch.{name}" in MODULES, name
-    assert len(MODULES) >= 37
+    assert len(MODULES) >= 39
+
+
+def test_bpe_needs_no_regex_package():
+    """The port's BPE imports and tokenizes with the standard library's re
+    where the regex package is missing (the chip machine does not list it)."""
+    probe = ("import sys; sys.modules['regex'] = None; "
+             "from psg_tpu_torch.text import bpe; "
+             "print(bpe.PAT_REGEX is None and bpe._PAT is bpe.PAT_RE, "
+             "bpe._PAT.findall(\"it's 2 red-ish lizards!\"))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "True ['it', \"'s\", '2', 'red', '-', 'ish', 'lizards', '!']"
 
 
 def test_serving_front_end_imports_no_optional_package():

@@ -1,11 +1,13 @@
-"""The port's training CLI end to end on the CPU: ``python -m
-psg_tpu_torch.train.cli --stage 2 --device cpu`` trains one epoch of two
-steps at the tiny config over a sprite corpus made from a seed, writes its
-checkpoints and a sample grid, and ``python -m psg_tpu_torch.serve.app
---device cpu`` serves a sprite from what it wrote.  Both CLIs are driven
+"""The port's training CLI end to end on the CPU at the tiny config over a
+sprite corpus made from a seed: ``--stage 2`` trains one epoch of two steps,
+writes its checkpoints and a sample grid, and ``python -m
+psg_tpu_torch.serve.app --device cpu`` serves a sprite from what it wrote;
+``--stage 3`` alone, ``--stage all`` (1 -> 2 -> 3, then served as a final
+bundle) and ``--stage 0`` followed by a warm-started ``--stage 1``.  Both CLIs are driven
 in-process, with ``HF_HUB_OFFLINE=1`` and any DNS lookup failing the test."""
 
 import json
+import logging
 import socket
 
 import pytest
@@ -64,14 +66,86 @@ def test_train_stage2_then_serve(tmp_path, offline, capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--stage", "3"], "stage 3"),
-    (["--stage", "0"], "stage 0"),
-    (["--stage", "all"], "stage all"),
     (["--stage", "2", "--use-diffusers"], "use-diffusers"),
+    (["--stage", "all", "--use-diffusers"], "use-diffusers"),
+    (["--stage", "3", "--override", "training.fast_path=true"], "fast_path"),
 ])
 def test_unported_stages_raise(argv, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(argv + ["--config", str(tmp_path / "none.yaml"), "--device", "cpu"])
+
+
+def _train_args(tmp_path, corpus, *extra):
+    return (["--device", "cpu", "--config", str(tmp_path / "none.yaml"),
+             "--experiment-name", "cli"]
+            + [f"--override={o}" for o in _model_overrides(tmp_path, corpus) + [
+                "data.batch_size=3", "data.num_workers=2", "training.vae_epochs=1",
+                "training.diffusion_epochs=1", "training.final_epochs=2",
+                "training.phase1_epochs=1", "training.sample_every=2",
+                "extra.sample_steps=2", *extra]])
+
+
+def test_train_stage3_alone(tmp_path, offline, capsys, caplog):
+    """``--stage 3`` with no stage-1 or stage-2 checkpoint in the experiment
+    draws the VAE, text encoder and UNet from the seed (and says so), trains
+    one text-encoder epoch and one joint epoch, and writes its best (a joint
+    one) and the sample grid."""
+    corpus = write_sprite_corpus(tmp_path / "corpus", n=7, seed=1, size=64)
+    with caplog.at_level(logging.INFO):
+        assert cli.main(["--stage", "3"] + _train_args(tmp_path, corpus)) == 0
+    assert "VAE and text drawn from seed" in caplog.text
+    assert "switching to joint training" in caplog.text
+    stage = tmp_path / "exp" / "cli_final"
+    meta = json.loads((stage / "checkpoints" / "final_best_model.json").read_text())
+    assert (meta["stage"], meta["step"], meta["training_phase"]) == ("final", 4, "joint")
+    assert (stage / "samples" / "final_epoch_0001.png").exists()
+    assert "stage 3 complete" in capsys.readouterr().out
+
+
+def test_train_all_then_serve_the_final_bundle(tmp_path, offline, capsys, caplog):
+    """``--stage all`` runs 1 -> 2 -> 3, each stage loading the one before
+    it; the hub resolves the stage-3 best as a final bundle (with
+    ``extra.serve_prefer_final``) and the serving CLI serves it."""
+    corpus = write_sprite_corpus(tmp_path / "corpus", n=7, seed=1, size=64)
+    with caplog.at_level(logging.INFO):
+        assert cli.main(["--stage", "all"] + _train_args(tmp_path, corpus)) == 0
+    exp = tmp_path / "exp"
+    vae = exp / "cli_vae" / "checkpoints" / "vae_best_model.ckpt"
+    diff = exp / "cli_diffusion" / "checkpoints" / "diffusion_best_model.ckpt"
+    final = exp / "cli_final" / "checkpoints" / "final_best_model.ckpt"
+    assert f"loaded frozen VAE/text from {vae}" in caplog.text
+    assert f"loaded VAE+text from {vae}" in caplog.text
+    assert f"loaded UNet from {diff}" in caplog.text
+    out = capsys.readouterr().out
+    assert all(f"stage {i} complete" in out for i in (1, 2, 3))
+
+    sprite = tmp_path / "sprite.png"
+    assert app.main(["--device", "cpu", "--config", str(tmp_path / "none.yaml"),
+                     "--experiment-name", "cli", "--prompt", "a red fire creature",
+                     "--steps", "2", "--out", str(sprite)]
+                    + [f"--override={o}" for o in _model_overrides(tmp_path, corpus)
+                       + ["extra.serve_prefer_final=true"]]) == 0
+    printed = capsys.readouterr().out
+    assert "loaded=final-bundle" in printed and f"vae={final}" in printed
+    assert sprite.exists()
+
+
+def test_stage0_then_stage1_from_its_checkpoint(tmp_path, offline, capsys, caplog):
+    """``--stage 0`` writes the MLM best and says how to warm-start stage 1;
+    ``--stage 1 --override extra.text_init=...`` then starts its text tower
+    from it."""
+    corpus = write_sprite_corpus(tmp_path / "corpus", n=7, seed=1, size=64)
+    mlm = ["extra.mlm_epochs=1", "extra.mlm_batch=4", "extra.mlm_caption_augment=2"]
+    assert cli.main(["--stage", "0"] + _train_args(tmp_path, corpus, *mlm)) == 0
+    best = tmp_path / "exp" / "cli_mlm" / "checkpoints" / "mlm_best_model.ckpt"
+    out = capsys.readouterr().out
+    assert f"stage 0 complete: {best}" in out
+    assert f"--override extra.text_init={best}" in out
+    with caplog.at_level(logging.INFO):
+        assert cli.main(["--stage", "1"] + _train_args(tmp_path, corpus,
+                                                       f"extra.text_init={best}")) == 0
+    assert f"bert=mlm:{best}" in caplog.text
+    assert "stage 1 complete" in capsys.readouterr().out
 
 
 def test_data_stats(tmp_path, capsys):

@@ -95,7 +95,9 @@ prints one JSON line per phase:
                 the WordPiece ids) on phase 6c's 128 sprites, the VAE and
                 text encoder from phase 7's best and the UNet from phase
                 6c's: train_epoch (3 steps) and validate in each phase with
-                save_checkpoint after each, generate_samples (DDIM 10); the
+                save_checkpoint after each (the bests, full states; stage
+                3's periodic write is phase 10c's), generate_samples (DDIM
+                10); the
                 hub then resolves the final bundle and the serving generator
                 serves one DPM-10 request from it (``loaded=final-bundle``).
                 Step walls, samples/s, peak memory and seconds of each part,
@@ -108,6 +110,23 @@ prints one JSON line per phase:
                 epoch: step wall, samples/s, peak memory, launches (flash
                 only, one per BERT layer a step and a validation pass); the
                 best warm-starts a full-width stage-1 text template.
+10. ``fast_path``  the device-resident fast path.  (a) ``augment_batch`` and
+                ``draw_minibatch`` on the card against the CPU with the same
+                parameters at 215^2, batch 16, and one augment's device time.
+                (b) The tiny config in fp32, card against CPU, draws made on
+                the CPU: one fast epoch (3 steps, augmentation on) of each
+                stage, stage 2 with caption variants encoded in the step,
+                stage 3 across the switch, to phases 6b-8b's bounds.  (c)
+                ``python -m psg_tpu_torch.train.cli --stage all --config
+                config/r3_evidence.yaml`` in-process at full width (batch 16,
+                EMA 0.9995, bf16 first moment, warmup-cosine, skip 5.0) on
+                the 128 sprites, 2 epochs a stage, each stage handing the next
+                its light best: per stage the step walls, one step's device
+                time, one step's host-to-device copies (none allowed, counted
+                at PyTorch's dispatcher), samples/s,
+                peak memory, launches against ``predicted_fast_launches``,
+                every checkpoint's bytes and seconds; then serving loads
+                stage 3's light best as a final bundle and serves DPM-10.
 Phase 6c runs after phase 7: its frozen VAE and text encoder come from
 phase 7's checkpoint, and serving resolves the pair.
 In phases 4-9 images must be finite and of the right shape, a seed must
@@ -119,7 +138,7 @@ Phase 2 holds GroupNorm+SiLU at the decoder's and the UNet's sites and, at
 batch 1 and 4, at the VAE encoder's (107^2x32 with one channel a group,
 53^2x64, 27^2x128).  Then the card's name and power limit, the ``kernels``
 line (each kernel at its heaviest main-path shape, with its launches summed
-over phases 4-9, and the spatial kernel's gradient: its Function's forward
+over phases 4-10, and the spatial kernel's gradient: its Function's forward
 and backward at phase 7a's main case, launched in phase 7c's steps), and last
 ``{"ok": true, "device": {...}}``.  ``--json PATH`` also writes every
 phase's record to PATH.
@@ -142,6 +161,7 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent
 VOCAB = ROOT / "experiments" / "evidence_r5c_vae" / "vocab.txt"
@@ -1625,8 +1645,8 @@ def phase_stage3_full_width(exp, corpus, vae_checkpoint, diffusion_checkpoint):
 
     cfg = load_config(CONFIG, [f"experiment_dir={exp}", f"data.csv_path={corpus[0]}",
                                f"data.image_dir={corpus[1]}", "training.final_epochs=2",
-                               "training.phase1_epochs=1", "training.save_every=2",
-                               "extra.sample_steps=10", "extra.serve_prefer_final=true"])
+                               "training.phase1_epochs=1", "extra.sample_steps=10",
+                               "extra.serve_prefer_final=true"])
     if (cfg.model.compute_dtype, cfg.data.image_size, cfg.data.batch_size) != (
             "bfloat16", 215, S3_BATCH):
         fail(f"{CONFIG.name} is not the full-width bf16 batch-32 configuration")
@@ -1903,6 +1923,494 @@ def phase_stage0_full_width(exp, corpus):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the device-resident fast path
+# ---------------------------------------------------------------------------
+
+R3_CONFIG = ROOT / "config" / "r3_evidence.yaml"
+FAST_BATCH, FAST_SIZE = 16, 215     # config/r3_evidence.yaml's batch and image size
+FAST_EPOCHS = 2            # each stage's epochs in phase 10c
+AUG_ATOL, AUG_MEAN_ATOL, AUG_EDGE_PX = 1e-4, 1e-5, 1e-3
+
+
+def _aug_near_edge(params, size):
+    """Pixels whose source coordinate lies within AUG_EDGE_PX of the edge,
+    where the in-bounds test may flip between two devices' roundings."""
+    from psg_tpu_torch.data import device_augment as da
+
+    p = {k: v.float().cpu() for k, v in params.items()}
+    aspect = torch.exp(p["log_aspect"])
+    cw = torch.sqrt(p["area"] * aspect).clamp_max(1.0)
+    ch = torch.sqrt(p["area"] / aspect).clamp_max(1.0)
+    yi, xi = da._affine_coords(size, p["angle"] * math.pi / 180.0, (ch, cw),
+                               (p["center_y"] * (1 - ch) * (size - 1) / 2,
+                                p["center_x"] * (1 - cw) * (size - 1) / 2))
+    return torch.stack([yi.abs(), (yi - (size - 1)).abs(), xi.abs(),
+                        (xi - (size - 1)).abs()]).amin(0) < AUG_EDGE_PX
+
+
+def phase_fast_augment():
+    """(a) ``augment_batch`` and ``draw_minibatch`` on the card against the
+    CPU with the same parameters at 215^2, batch 16 (the split of phase
+    10c: 103 sprites), and the device time of one augment (CUDA events over
+    20 calls) beside its bytes bound."""
+    from psg_tpu_torch.data.device_augment import augment_batch, draw_augment_params
+    from psg_tpu_torch.train.fastpath import draw_minibatch
+
+    rs = np.random.RandomState(0)
+    images = torch.from_numpy(rs.randint(0, 256, (FAST_BATCH, FAST_SIZE, FAST_SIZE, 3)
+                                          ).astype(np.uint8))
+    params = draw_augment_params(torch.Generator().manual_seed(0), FAST_BATCH)
+    ref = augment_batch(images, params)
+    card_images = images.cuda()
+    card_params = {k: v.cuda() for k, v in params.items()}
+    got = augment_batch(card_images, card_params).cpu()
+    err = (got - ref).abs()
+    far = ~_aug_near_edge(params, FAST_SIZE)
+    max_far, mean = float(err[far].max()), float(err.mean())
+    if not (max_far <= AUG_ATOL and mean <= AUG_MEAN_ATOL):
+        fail(f"augment_batch card vs CPU: max {max_far:.3g} (> {AUG_ATOL}) away from the "
+             f"edge or mean {mean:.3g} (> {AUG_MEAN_ATOL})")
+    uniforms = torch.from_numpy(rs.uniform(size=103).astype(np.float32))
+    idx_cpu = draw_minibatch(None, 103, FAST_BATCH, uniforms=uniforms)
+    idx_card = draw_minibatch(None, 103, FAST_BATCH, device="cuda", uniforms=uniforms.cuda())
+    if not torch.equal(idx_cpu, idx_card.cpu()):
+        fail(f"draw_minibatch card vs CPU: {idx_card.tolist()} != {idx_cpu.tolist()}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    drawn = draw_minibatch(gen, 103, FAST_BATCH, device="cuda")
+    if len(set(drawn.tolist())) != FAST_BATCH:
+        fail(f"draw_minibatch on the card repeated an index: {drawn.tolist()}")
+    ms = _event_ms(lambda: augment_batch(card_images, card_params), reps=20)
+    nb = images.numel() + 4 * images.numel()           # uint8 in, fp32 out
+    return {"shape": list(images.shape), "max_abs_err_away_from_edge": max_far,
+            "mean_abs_err": mean, "atol": AUG_ATOL, "mean_atol": AUG_MEAN_ATOL,
+            "edge_pixels": int((~far).sum()), "max_abs_err": float(err.max()),
+            "draw_minibatch_equal": True, "augment_ms": ms,
+            "augment_bound_ms": nb / HBM_BYTES_PER_S * 1e3}
+
+
+def _fast_draws(rs, trainer, steps, *, loss, variants=0):
+    """CPU draws for ``steps`` fast steps: the index uniforms, the
+    augmentation parameters, the caption-variant index, then ``loss(rs)``."""
+    from psg_tpu_torch.data.device_augment import draw_augment_params
+
+    n, b = trainer._train_data["images"].shape[0], trainer.cfg.data.batch_size
+    out = []
+    for _ in range(steps):
+        d = {"uniforms": torch.from_numpy(rs.uniform(size=n).astype(np.float32)),
+             "augment": draw_augment_params(
+                 torch.Generator().manual_seed(int(rs.randint(1 << 30))), b)}
+        if variants:
+            d["v"] = torch.from_numpy(rs.randint(0, variants, b))
+        out.append({**d, **loss(rs)})
+    return out
+
+
+def _record_grads(trainer):
+    seen, orig = [], trainer._grads
+
+    def grads(*args, **kwargs):
+        out = orig(*args, **kwargs)
+        seen.append(out[1])
+        return out
+
+    trainer._grads = grads
+    return seen
+
+
+def _fast_compare(name, cpu, card, epochs, grad_rtol, loss_rtol, param_atol,
+                  loss_key="loss", switch=None):
+    """One fast epoch of 3 steps (``epochs``: (epoch, draws) pairs; the
+    switch to stage 3's joint phase between them) on the CPU trainer and
+    the card's: every step's loss, the first step's gradients, the
+    parameters (and EMA) after it where the first step's gradient is
+    determined or 0 on both devices."""
+    from psg_tpu_torch import ops
+    from psg_tpu_torch.core import tree
+
+    card._setup_fast_data()          # the CPU trainer's split drew the draws
+    seen = {"cpu": _record_grads(cpu), "card": _record_grads(card)}
+    losses, counts = [], None
+    for i, (epoch, step, draws) in enumerate(epochs):
+        if i and switch:
+            switch(cpu)
+            switch(card)
+        a = cpu._fast_epoch(step(cpu), draws)
+        before = ops.launch_counts()
+        b = card._fast_epoch(step(card), draws)
+        after = ops.launch_counts()
+        counts = counts or {k: v - before[k] for k, v in after.items()}
+        losses += list(zip(a[loss_key], b[loss_key]))
+    grad_err, keep = 0.0, []
+    for (path, r), g in zip(tree.items(seen["cpu"][0]), tree.leaves(seen["card"][0])):
+        g = g.float().cpu()
+        err = (g - r).abs().max().item()
+        bound_ = grad_rtol * r.abs().max().item() + 1e-6
+        grad_err = max(grad_err, err / bound_)
+        if not err <= bound_:
+            fail(f"{name} fast card vs CPU: gradient {path} max|dg| {err:.3g} > {bound_:.3g}")
+        keep.append(torch.ones_like(r, dtype=torch.bool) if _zero_leaf(r) and _zero_leaf(g)
+                    else r.abs() >= 100 * (1e-4 * r.abs().max() + 1e-7))
+    loss_rel = max(abs(b - a) / abs(a) for a, b in losses)
+    if not loss_rel <= loss_rtol:
+        fail(f"{name} fast card vs CPU: loss rel diff {loss_rel:.3g} > {loss_rtol}: {losses}")
+    param_err = 0.0
+    trees = [("params", card.state.params, cpu.state.params)]
+    if card.state.ema is not None:
+        trees.append(("ema", card.state.ema, cpu.state.ema))
+    for _what, mine, ref in trees:
+        for a, r, m in zip(tree.leaves(mine), tree.leaves(ref), keep):
+            d = (a.detach().cpu() - r.detach())[m].abs()
+            param_err = max(param_err, d.max().item() if d.numel() else 0.0)
+    if not param_err <= param_atol:
+        fail(f"{name} fast card vs CPU: params after 3 steps {param_err:.3g} > {param_atol}")
+    if card.state.step != 3 or cpu.state.step != 3:
+        fail(f"{name} fast card vs CPU: {card.state.step} / {cpu.state.step} steps, not 3")
+    need = ("group_norm_silu", "flash_attention") + (
+        () if name == "stage 2" else ("spatial_xattn",))
+    if min(counts[k] for k in need) == 0:
+        fail(f"{name} fast card vs CPU: a kernel was not launched: {counts}")
+    return {"losses_cpu_card": losses, "loss_rel": loss_rel, "loss_rtol": loss_rtol,
+            "grad_err_over_bound": grad_err, "grad_rtol": grad_rtol,
+            "params_after_3_steps_max_abs_determined": param_err, "params_atol": param_atol,
+            "first_epoch_launches": counts}
+
+
+def phase_fast_card_vs_cpu(tmp):
+    """(b) The tiny config in fp32, one trainer on the CPU and one on the
+    card per stage, the same parameters, draws made on the CPU: one fast
+    epoch of 3 steps with augmentation on (stage 2 with 2 caption variants
+    encoded in the step; stage 3 one text-encoder step, the switch, two
+    joint steps), held to phases 6b-8b's bounds."""
+    from psg_tpu_torch.data.synthetic import write_sprite_corpus
+    from psg_tpu_torch.models import bridge
+    from psg_tpu_torch.nn.layers import prepare_weights
+    from psg_tpu_torch.train.stage1_vae import VAETrainer
+    from psg_tpu_torch.train.stage2_diffusion import DiffusionTrainer
+    from psg_tpu_torch.train.stage3_final import FinalTrainer
+
+    corpus = write_sprite_corpus(Path(tmp) / "fast_tiny_corpus", n=12, seed=0, size=64)
+    rs = np.random.RandomState(0)
+    out = {}
+
+    def rep_noise(t):
+        lat = (t.cfg.data.batch_size, t.latent_size, t.latent_size, t.cfg.model.latent_dim)
+        return lambda r: {"rep_noise": torch.from_numpy(r.randn(*lat).astype(np.float32))}
+
+    cfg = _stage1_tiny_config(Path(tmp) / "fast_s1", corpus)
+    cpu = VAETrainer(cfg, experiment_name="cpu", device="cpu")
+    card = VAETrainer(cfg, experiment_name="card", device="cuda")
+    card.state = card._fresh_state(bridge.fit(card.state.params, cpu.state.params), step=0,
+                                   rng=card.state.rng)
+    card.vgg_params = bridge.fit(card.vgg_params, cpu.vgg_params)
+    cpu._setup_fast_data()
+    klw = cpu.kl_weight(1)
+    draws = _fast_draws(rs, cpu, 3, loss=rep_noise(cpu))
+    out["stage1"] = _fast_compare(
+        "stage 1", cpu, card, [(1, lambda t: (lambda b, d: t._step(b, klw, d)), draws)],
+        S1_GRAD_RTOL, S1_LOSS_RTOL, S1_PARAM_ATOL, loss_key="total_loss")
+    del cpu, card
+
+    cfg = _tiny_train_config(Path(tmp) / "fast_s2", corpus)
+    cfg.extra = {**cfg.extra, "caption_augment": 2}
+    cpu = DiffusionTrainer(cfg, None, experiment_name="cpu", device="cpu")
+    card = DiffusionTrainer(cfg, None, experiment_name="card", device="cuda")
+    card.frozen = prepare_weights(bridge.fit(card.frozen, cpu.frozen))
+    card.state = card._fresh_state(bridge.fit(card.state.params, cpu.state.params), step=0,
+                                   rng=card.state.rng)
+    cpu._setup_fast_data()
+    b, lat = cfg.data.batch_size, (cfg.data.batch_size, cpu.latent_size, cpu.latent_size,
+                                   cfg.model.latent_dim)
+
+    def s2_loss(r):
+        return {"rep_noise": torch.from_numpy(r.randn(*lat).astype(np.float32)),
+                "t": torch.from_numpy(r.randint(0, cpu.schedule.num_timesteps, b)),
+                "noise": torch.from_numpy(r.randn(*lat).astype(np.float32)),
+                "keep": torch.from_numpy(r.uniform(size=(b, 1, 1)) >= cpu.cond_dropout),
+                "dropout": _dropout_masks(r, cpu.spec, b, cpu.spec.attn_dropout)}
+
+    draws = _fast_draws(rs, cpu, 3, loss=s2_loss, variants=2)
+    out["stage2"] = _fast_compare("stage 2", cpu, card, [(0, lambda t: t._step, draws)],
+                                  TRAIN_GRAD_RTOL, TRAIN_LOSS_RTOL, TRAIN_PARAM_ATOL)
+    del cpu, card
+
+    cfg = _stage1_tiny_config(Path(tmp) / "fast_s3", corpus)
+    cfg.training.final_epochs, cfg.training.phase1_epochs = 2, 1
+    cpu = FinalTrainer(cfg, None, None, experiment_name="cpu", device="cpu")
+    card = FinalTrainer(cfg, None, None, experiment_name="card", device="cuda")
+    card.state = card._fresh_state(bridge.fit(card.state.params, cpu.state.params), step=0,
+                                   rng=card.state.rng)
+    card.clip_params = bridge.fit(card.clip_params, cpu.clip_params)
+    cpu._setup_fast_data()
+    draws = _fast_draws(rs, cpu, 3, loss=rep_noise(cpu))
+    out["stage3"] = _fast_compare(
+        "stage 3", cpu, card, [(0, lambda t: t._step, draws[:1]),
+                               (1, lambda t: t._step, draws[1:])],
+        S1_GRAD_RTOL, S1_LOSS_RTOL, S1_PARAM_ATOL, loss_key="total_loss",
+        switch=lambda t: t.switch_to_joint_training())
+    if card.phase != "joint":
+        fail("stage 3 fast card vs CPU: no switch to the joint phase")
+    del cpu, card
+    release()
+    return out
+
+
+def predicted_fast_launches(trainer, steps, val_batches, setup_encodes):
+    """Forward launches of a fast stage: its steps and validation batches
+    (stage 1 and 3 as their classic step; stage 2 without the text encode,
+    which the fast path precomputes in ``setup_encodes`` calls, or with it
+    when caption variants are encoded in the step) and the setup's text
+    encodes."""
+    from psg_tpu_torch.train.stage1_vae import VAETrainer
+    from psg_tpu_torch.train.stage3_final import FinalTrainer
+
+    if isinstance(trainer, VAETrainer):
+        per_step = per_val = predicted_stage1_launches(trainer)
+    elif isinstance(trainer, FinalTrainer):
+        per_step = per_val = predicted_stage3_launches(trainer)
+    else:
+        per_step = predicted_launches(trainer, 1, text_encodes=int(trainer.caption_augment > 0),
+                                      encodes=1, decodes=0)
+        per_val = predicted_launches(trainer, 1, text_encodes=0, encodes=1, decodes=0)
+    setup = predicted_launches(trainer, 0, text_encodes=1, encodes=0, decodes=0)
+    return {k: steps * per_step[k] + val_batches * per_val[k] + setup_encodes * setup[k]
+            for k in per_step}
+
+
+def _device_ms(fn):
+    """(result, summed device time in ms) of one call under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kernel_us = sum(evt.self_device_time_total for evt in prof.key_averages()
+                    if evt.device_type == torch.autograd.DeviceType.CUDA)
+    return out, kernel_us / 1e3
+
+
+class _HostToDevice(TorchDispatchMode):
+    """Records every copy of a CPU tensor onto the card that goes through
+    PyTorch's dispatcher (``_to_copy``, ``copy_``) as (shape, bytes).  The
+    profiler's memcpy records are not used: on that machine it dropped some,
+    the first of a run among them."""
+
+    def __init__(self):
+        super().__init__()
+        self.copies = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func is torch.ops.aten._to_copy.default:
+            src, dst = args[0], out
+        elif func is torch.ops.aten.copy_.default:
+            src, dst = args[1], args[0]
+        else:
+            return out
+        if src.device.type == "cpu" and dst.device.type == "cuda":
+            self.copies.append((list(src.shape), src.numel() * src.element_size()))
+        return out
+
+
+def phase_fast_full_width(tmp, corpus):
+    """(c) ``python -m psg_tpu_torch.train.cli --stage all --config
+    config/r3_evidence.yaml`` in-process at full width (bf16, BERT-base,
+    the 655M UNet, the full VAE, 215^2, text_len 128, batch 16, EMA 0.9995,
+    bf16 first moment, warmup-cosine, skip 5.0) on phase 6c's 128 sprites,
+    2 epochs a stage, validating and writing a light best each epoch: each
+    stage's step walls (after its first step), the device time of its last
+    step of epoch 0 under the profiler, the host-to-device copies of the
+    next step (none allowed),
+    samples/s, peak memory, launches against ``predicted_fast_launches``,
+    and the bytes and seconds of every checkpoint; then the hub resolves
+    stage 3's light best as a final bundle and the serving generator serves
+    one DPM-10 request from it.  Counts are set to 0 before the CLI and
+    read after the request."""
+    from psg_tpu_torch import ops
+    from psg_tpu_torch.core.checkpoint import CheckpointManager
+    from psg_tpu_torch.core.config import load_config
+    from psg_tpu_torch.serve import hub
+    from psg_tpu_torch.serve.generator import PokemonGenerator
+    from psg_tpu_torch.train import cli
+    from psg_tpu_torch.train.stage1_vae import VAETrainer
+    from psg_tpu_torch.train.stage2_diffusion import DiffusionTrainer
+    from psg_tpu_torch.train.stage3_final import FinalTrainer
+
+    exp = Path(tmp) / "fast_exp"
+    exp.mkdir()
+    (exp / "vocab.txt").write_bytes(VOCAB.read_bytes())
+    overrides = [f"experiment_dir={exp}", f"data.csv_path={corpus[0]}",
+                 f"data.image_dir={corpus[1]}", f"training.vae_epochs={FAST_EPOCHS}",
+                 f"training.diffusion_epochs={FAST_EPOCHS}",
+                 f"training.final_epochs={FAST_EPOCHS}", "training.val_every=1",
+                 "training.best_every=1"]
+    cfg = load_config(R3_CONFIG, overrides)
+    o = cfg.optimization
+    if not (cfg.training.fast_path and cfg.model.compute_dtype == "bfloat16"
+            and cfg.data.batch_size == FAST_BATCH and cfg.data.image_size == FAST_SIZE
+            and o.ema_decay == 0.9995 and o.mu_dtype == "bfloat16"
+            and o.scheduler == "warmup_cosine" and o.skip_grad_norm == 5.0):
+        fail(f"{R3_CONFIG.name} is not the full-width fast-path recipe")
+    stages = {}
+    current = {}
+    classes = {VAETrainer: "stage1", DiffusionTrainer: "stage2", FinalTrainer: "stage3"}
+    wrapped = [(cls, name) for cls in classes
+               for name in ("_step", "train", "_setup_fast_data", "validate_fast")]
+    wrapped += [(CheckpointManager, "save"), (CheckpointManager, "save_best_light")]
+    saved = {(cls, name): cls.__dict__.get(name) for cls, name in wrapped}
+
+    def wrap_step(orig):
+        def step(self, *args, **kwargs):
+            rec = stages[classes[type(self)]]
+            i = len(rec["step_s"])
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if i == self._fast_len - 1:      # the last step of epoch 0: device time
+                out, rec["profiled_step_device_ms"] = _device_ms(
+                    lambda: orig(self, *args, **kwargs))
+            elif i == self._fast_len:        # the first of epoch 1: host-to-device copies
+                with _HostToDevice() as mode:
+                    out = orig(self, *args, **kwargs)
+                    torch.cuda.synchronize()
+                rec["h2d_copies"] = mode.copies
+            else:
+                out = orig(self, *args, **kwargs)
+                torch.cuda.synchronize()
+            rec["step_s"].append(time.perf_counter() - t)
+            return out
+        return step
+
+    def wrap_train(orig):
+        def train(self):
+            name = classes[type(self)]
+            stages[name] = rec = {"step_s": [], "checkpoints": [], "val_batches": 0}
+            current["stage"] = name
+            release()
+            torch.cuda.reset_peak_memory_stats()
+            before = ops.launch_counts()
+            t = time.perf_counter()
+            best = orig(self)
+            torch.cuda.synchronize()
+            rec["train_s"] = time.perf_counter() - t
+            rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            rec["launches"] = {k: v - before[k] for k, v in ops.launch_counts().items()}
+            n_setup = 0
+            if isinstance(self, DiffusionTrainer) and not self.caption_augment:
+                n_setup = (-(-self._train_data["images"].shape[0] // 64)
+                           + self._val_data["images"].shape[0])
+            rec["predicted_launches"] = predicted_fast_launches(
+                self, len(rec["step_s"]), rec["val_batches"], n_setup)
+            rec["skipped_batches"] = self.skipped_batches()
+            rec["steps"], rec["best"] = self.state.step, str(best)
+            return best
+        return train
+
+    def wrap_setup(orig):
+        def setup(self):
+            t = time.perf_counter()
+            orig(self)
+            torch.cuda.synchronize()
+            stages[classes[type(self)]]["setup_fast_data_s"] = time.perf_counter() - t
+        return setup
+
+    def wrap_validate(orig):
+        def validate(self, epoch, draws=None):
+            t = time.perf_counter()
+            val = orig(self, epoch, draws)
+            rec = stages[classes[type(self)]]
+            rec["val_batches"] += self._val_data["images"].shape[0]
+            rec.setdefault("val_loss", []).append(val)
+            rec.setdefault("validate_s", []).append(time.perf_counter() - t)
+            return val
+        return validate
+
+    def wrap_save(orig, kind):
+        def save(self, *args, **kwargs):
+            t = time.perf_counter()
+            out = orig(self, *args, **kwargs)
+            path = self.best_path if kind == "light best" else self.latest_path()
+            if kind == "full state" or out:
+                stages[current["stage"]]["checkpoints"].append(
+                    {"kind": kind, "gb": path.stat().st_size / 1e9,
+                     "s": time.perf_counter() - t})
+            return out
+        return save
+
+    for cls in classes:
+        cls._step = wrap_step(cls.__dict__["_step"])
+        cls.train = wrap_train(cls.__dict__["train"])
+        cls._setup_fast_data = wrap_setup(cls._setup_fast_data)
+        cls.validate_fast = wrap_validate(cls.__dict__["validate_fast"])
+    CheckpointManager.save = wrap_save(CheckpointManager.__dict__["save"], "full state")
+    CheckpointManager.save_best_light = wrap_save(
+        CheckpointManager.__dict__["save_best_light"], "light best")
+    ops.reset_launch_counts()          # this path's counted run starts here
+    try:
+        t = time.perf_counter()
+        rc = cli.main(["--stage", "all", "--config", str(R3_CONFIG), "--experiment-name",
+                       "fast"] + [f"--override={o}" for o in overrides])
+        cli_s = time.perf_counter() - t
+    finally:
+        for (cls, name), fn in saved.items():
+            if fn is None:
+                delattr(cls, name)
+            else:
+                setattr(cls, name, fn)
+    if rc != 0:
+        fail(f"the training CLI exited {rc}")
+    release()
+    for name, rec in stages.items():
+        if rec["launches"] != rec["predicted_launches"]:
+            fail(f"{name} fast path: launches {rec['launches']} != predicted "
+                 f"{rec['predicted_launches']}")
+        if rec["skipped_batches"] or not np.isfinite(rec["val_loss"]).all():
+            fail(f"{name} fast path: {rec['skipped_batches']} skipped steps, val "
+                 f"{rec['val_loss']}")
+        if rec.get("h2d_copies") != []:
+            fail(f"{name} fast path: host-to-device copies in a step: "
+                 f"{rec.get('h2d_copies', 'not counted')}")
+        kinds = [c["kind"] for c in rec["checkpoints"]]
+        if "light best" not in kinds or kinds[-1] != "full state":
+            fail(f"{name} fast path: checkpoints {kinds}")
+        # after the first step, less the profiled and the counted one
+        n = len(rec["step_s"]) // FAST_EPOCHS
+        steady = [s for i, s in enumerate(rec["step_s"]) if i not in (0, n - 1, n)]
+        rec["step_wall_after_first_s"] = float(np.mean(steady))
+        rec["samples_per_s"] = FAST_BATCH / rec["step_wall_after_first_s"]
+    if sorted(stages) != ["stage1", "stage2", "stage3"]:
+        fail(f"the CLI ran {sorted(stages)}")
+
+    serve_cfg = load_config(R3_CONFIG, overrides + ["extra.serve_prefer_final=true"])
+    vae_ckpt, diff_ckpt = hub.resolve_checkpoints(serve_cfg, "fast", allow_hub=False)
+    if vae_ckpt != stages["stage3"]["best"] or diff_ckpt != vae_ckpt:
+        fail(f"hub resolved {vae_ckpt}, {diff_ckpt}, not stage 3's light best")
+    t = time.perf_counter()
+    gen = PokemonGenerator(serve_cfg, vae_checkpoint=vae_ckpt, diffusion_checkpoint=diff_ckpt,
+                           sampler="dpmpp", device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    before = ops.launch_counts()
+    t = time.perf_counter()
+    img = np.asarray(gen.generate_from_text(PROMPTS[0], 10, seed=3), np.float32)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t
+    launches = ops.launch_counts()     # ... and ends here
+    want = predicted_launches(gen, 10)
+    got = {k: v - before[k] for k, v in launches.items()}
+    if got != want:
+        fail(f"serving the fast path's bundle: launches {got} != predicted {want}")
+    if gen.loaded != "final-bundle" or img.shape != (FAST_SIZE, FAST_SIZE, 3) or not np.isfinite(
+            img).all():
+        fail(f"serving the fast path's bundle: loaded={gen.loaded}, image {img.shape}")
+    loaded = gen.loaded
+    del gen
+    release()
+    return {"config": R3_CONFIG.name, "epochs_per_stage": FAST_EPOCHS, "cli_s": cli_s,
+            "stages": stages, "serve_load_s": load_s, "serve_dpm10_s": serve_s,
+            "loaded": loaded, "serve_launches": got, "launches": launches}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2040,6 +2548,15 @@ def main(argv=None):
         emit("stage0", {"card": card, "card_vs_cpu": s0_tiny, "full_width": s0,
                         "full_width_seconds": time.perf_counter() - t_full,
                         "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        fast_aug = phase_fast_augment()
+        fast_tiny = phase_fast_card_vs_cpu(tmp)
+        t_full = time.perf_counter()
+        fast = phase_fast_full_width(tmp, corpus)
+        emit("fast_path", {"card": card, "augment": fast_aug, "card_vs_cpu": fast_tiny,
+                           "full_width": fast,
+                           "full_width_seconds": time.perf_counter() - t_full,
+                           "seconds": time.perf_counter() - t})
 
     by_name = {(r["kernel"], r["name"], r["dtype"]): r for r in results}
     kernels = []
@@ -2048,7 +2565,7 @@ def main(argv=None):
         kernels.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaces, "shape": case, "dtype": "bfloat16",
                         "launches": sum(ph["launches"][kname] for ph in (
-                            serve, paths, s1, full, s3, s0)),
+                            serve, paths, s1, full, s3, s0, fast)),
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

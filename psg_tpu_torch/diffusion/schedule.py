@@ -2,13 +2,16 @@
 
 Tables are fp32, built with numpy on the host in the reference's order of
 operations, and kept as CPU tensors: the samplers read per-step scalars from
-them and ``eps_from_v`` gathers per-sample values onto the model's device.
+them, and the per-sample gathers (``add_noise``, ``velocity``,
+``eps_from_v``) read a copy on the model's device, made once per table and
+device.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import Dict
 
 import numpy as np
 import torch
@@ -49,6 +52,7 @@ class DiffusionSchedule:
     sqrt_one_minus_alphas_cumprod: torch.Tensor
     sqrt_recip_alphas: torch.Tensor
     posterior_variance: torch.Tensor
+    _on_device: Dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
     def num_timesteps(self) -> int:
@@ -57,7 +61,10 @@ class DiffusionSchedule:
     def _at(self, table, timesteps, like):
         """table[timesteps] on ``like``'s device, shaped to broadcast over it."""
         shape = (-1,) + (1,) * (like.ndim - 1)
-        return table.to(like.device)[timesteps.long()].reshape(shape)
+        key = (id(table), like.device)
+        if key not in self._on_device:
+            self._on_device[key] = table.to(like.device)
+        return self._on_device[key][timesteps.long()].reshape(shape)
 
     def add_noise(self, x0, noise, timesteps):
         """q_sample: sqrt(acp_t) x0 + sqrt(1-acp_t) eps, in fp32."""

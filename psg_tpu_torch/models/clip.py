@@ -26,7 +26,13 @@ from typing import NamedTuple
 import torch
 
 from psg_tpu_torch import ops
-from psg_tpu_torch.nn.layers import layer_norm, layer_norm_init, linear, linear_init
+from psg_tpu_torch.nn.layers import (
+    channel_constant,
+    layer_norm,
+    layer_norm_init,
+    linear,
+    linear_init,
+)
 from psg_tpu_torch.nn.resize import bilinear_resize
 
 CLIP_IMAGE_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -121,9 +127,7 @@ def clip_encode_image(params, images01, cfg: ClipConfig, *, dtype=None):
     """images01: [B, H, W, 3] in [0, 1] -> [B, embed_dim] (unnormalized)."""
     v = params["vision"]
     x = bilinear_resize(images01, (cfg.image_size, cfg.image_size))
-    mean = torch.tensor(CLIP_IMAGE_MEAN, dtype=x.dtype, device=x.device)
-    std = torch.tensor(CLIP_IMAGE_STD, dtype=x.dtype, device=x.device)
-    x = (x - mean) / std
+    x = (x - channel_constant(CLIP_IMAGE_MEAN, x)) / channel_constant(CLIP_IMAGE_STD, x)
     b, p = x.shape[0], cfg.patch_size
     n = cfg.image_size // p
     # [B, n, p, n, p, 3] -> [B, n*n, p*p*3]

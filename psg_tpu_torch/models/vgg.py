@@ -15,7 +15,7 @@ from typing import List, Sequence
 import torch
 import torch.nn.functional as F
 
-from psg_tpu_torch.nn.layers import conv2d, conv2d_init
+from psg_tpu_torch.nn.layers import channel_constant, conv2d, conv2d_init
 
 # (torchvision features index, cin, cout); pools at indices 4 and 9
 _CONVS = (
@@ -42,9 +42,7 @@ def vgg16_features(params, x, taps: Sequence[int] = (8, 15), *,
                    dtype=None) -> List[torch.Tensor]:
     """x: [B, H, W, 3] in [0, 1] -> the feature maps at torchvision's layer
     indices ``taps``, convolutions in ``dtype``."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)
-    x = (x - mean) / std
+    x = (x - channel_constant(IMAGENET_MEAN, x)) / channel_constant(IMAGENET_STD, x)
     feats = []
     for conv_idx, _cin, _cout in _CONVS:
         x = torch.relu(conv2d(params[f"conv{conv_idx}"], x, stride=1, padding=1,

@@ -84,6 +84,13 @@ def conv2d(params, x, *, stride: int = 1, padding: int = 0, dtype=None):
 # ---------------------------------------------------------------------------
 
 
+def channel_constant(values, like: torch.Tensor) -> torch.Tensor:
+    """Per-channel constants [C] in ``like``'s dtype on its device, filled
+    there: a training step uploads nothing from the host."""
+    return torch.stack([torch.full((), float(v), dtype=like.dtype, device=like.device)
+                        for v in values])
+
+
 def largest_group_count(channels: int, max_groups: int = 32) -> int:
     """Largest divisor of ``channels`` that is <= max_groups."""
     g = min(max_groups, channels)

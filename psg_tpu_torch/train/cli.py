@@ -7,12 +7,15 @@
     python -m psg_tpu_torch.train.cli --data-stats
 
 ``all`` (the default) runs stages 1 -> 2 -> 3, the reference's three-stage
-contract; each stage's best checkpoint feeds the next.  Stage 0 (MLM
-pretraining of the text tower, ``train/stage0_mlm.py``) is not part of
-``all``: its best warm-starts stage 1 through ``--override
-extra.text_init=PATH``.  ``--use-diffusers`` (the SD-1.5 UNet for stage 2)
-raises ``NotImplementedError`` naming the ROADMAP item that ports it.  Runs
-on the card unless ``--device cpu``.
+contract; each stage's best checkpoint feeds the next.  With
+``training.fast_path=true`` (``config/r3_evidence.yaml``) stages 1-3 take
+the device-resident fast path (``train/fastpath.py``), whose bests are
+light (bf16 sampling params): stage 2 then reads stage 1's light best and
+stage 3 stage 2's.  Stage 0 (MLM pretraining of the text tower,
+``train/stage0_mlm.py``) is not part of ``all``: its best warm-starts stage
+1 through ``--override extra.text_init=PATH``.  ``--use-diffusers`` (the
+SD-1.5 UNet for stage 2) raises ``NotImplementedError`` naming the ROADMAP
+item that ports it.  Runs on the card unless ``--device cpu``.
 
 Checkpoints follow the reference's paths:
 ``{experiment_dir}/{name}_{vae,diffusion,final}/checkpoints/{stage}_best_model.ckpt``.

@@ -1,5 +1,6 @@
 """Stage 1: joint VAE + text-encoder training (port of
-``psg_tpu/train/stage1_vae.py``, the classic loader path).
+``psg_tpu/train/stage1_vae.py``: the classic loader path and the
+device-resident fast path).
 
 A step: the text encoder (BERT, projection, LayerNorm), the VAE encoder,
 ``reparameterize``, the decoder with its text cross-attention, then L1 +
@@ -26,9 +27,16 @@ Weights named by ``$PSG_TPU_BERT``, ``$PSG_TPU_VGG16`` or
 named and no file at the default ``weights/`` path, BERT is drawn from the
 config's seed and VGG16 from a generator seeded 1234, and the log says so.
 
+With ``training.fast_path`` ``train()`` takes the device-resident path
+(``train/fastpath.py``): the split on the device, each step's minibatch
+drawn, gathered and augmented there, then the classic step's ``_grads`` and
+``_apply_update`` at the epoch's KL weight; light best checkpoints (bf16
+params on the ``best_every`` cadence) and one full periodic state at the
+end.  Its draws, in order: the index uniforms, the augmentation parameters,
+then the reparameterize noise; ``train_epoch_fast`` and ``validate_fast``
+take them too (``draws``, one dict a step or a validation batch).
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
-The device-resident fast path (``training.fast_path``) is not ported and
-raises.
 """
 
 from __future__ import annotations
@@ -67,6 +75,7 @@ from psg_tpu_torch.models.vgg import vgg16_init
 from psg_tpu_torch.nn.layers import prepare_weights
 from psg_tpu_torch.serve.generator import resolve_device
 from psg_tpu_torch.train.common import device_batch, get_tokenizer
+from psg_tpu_torch.train.fastpath import FastPath
 from psg_tpu_torch.train.optim import (
     build_optimizer,
     labels_from_mask,
@@ -88,18 +97,14 @@ def _named_weights(env: str, default: str):
     return Path(named or default), bool(named)
 
 
-class VAETrainer:
+class VAETrainer(FastPath):
     """Stage-1 trainer."""
 
     STAGE = "vae"
+    EPOCHS = "vae_epochs"
 
     def __init__(self, cfg: Config, experiment_name: str = "pokemon",
                  sample_descriptions=None, *, device=None):
-        if cfg.training.fast_path:
-            raise NotImplementedError(
-                "training.fast_path (the device-resident path of psg_tpu/train/"
-                "fastpath.py) is not ported yet (ROADMAP Queue A item 4); set "
-                "training.fast_path=false for the classic loader path")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             configure_torch(cfg)
@@ -262,6 +267,24 @@ class VAETrainer:
                           text_bias=text_bias_from_mask(text_mask), dtype=self.compute_dtype,
                           noise=noise)
 
+    # -- the device-resident fast path (train/fastpath.py) -----------------------
+
+    def train_epoch_fast(self, epoch: int, draws=None) -> Dict[str, float]:
+        klw = self.kl_weight(epoch)
+        ys = self._fast_epoch(lambda batch, d: self._step(batch, klw, d), draws)
+        stats = {k: float(np.mean(v)) for k, v in ys.items()}
+        stats["grad_norm_max"] = float(np.max(ys["grad_norm"]))
+        self.metrics.scalars(stats, self.state.step, prefix="vae_train/")
+        return stats
+
+    def validate_fast(self, epoch: int, draws=None) -> float:
+        klw = self.kl_weight(epoch)
+        val = self._fast_validate(lambda batch, gen, d, w: self._forward_loss(
+            self.state.params, batch, klw, "val", gen, draws=d,
+            sample_weights=w)[1]["total_loss"], draws)
+        self.metrics.scalar("vae_val/total_loss", val, self.state.step)
+        return val
+
     # -- loops ---------------------------------------------------------------
 
     def kl_weight(self, epoch: int) -> float:
@@ -371,6 +394,8 @@ class VAETrainer:
                       self.best_val)
 
     def train(self) -> Path:
+        if self.cfg.training.fast_path:
+            return self._train_fast()
         epochs = self.cfg.training.vae_epochs
         self.log.info("stage 1: %d epochs, %d train batches/epoch on %s", epochs,
                       len(self.train_loader), self.device)

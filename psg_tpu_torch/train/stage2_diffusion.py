@@ -1,5 +1,6 @@
 """Stage 2: UNet diffusion training on frozen VAE latents (port of
-``psg_tpu/train/stage2_diffusion.py``, the classic loader path).
+``psg_tpu/train/stage2_diffusion.py``: the classic loader path and the
+device-resident fast path).
 
 A step: the frozen text encoder and VAE encoder (no gradient), the
 reparameterized latent clamped to +-latent_clamp, ``q_sample`` at a uniform
@@ -19,9 +20,18 @@ draws (``draws``), which is how the tests inject the JAX trainer's.
 Validation draws from a generator seeded the same way for every batch, as
 the JAX trainer folds one fixed key.
 
+With ``training.fast_path`` ``train()`` takes the device-resident path
+(``train/fastpath.py``): the split on the device, each step's minibatch
+drawn, gathered and augmented there, the frozen text embeddings precomputed
+once (or, with ``extra.caption_augment``, a drawn caption variant encoded
+in the step), then the classic step's ``_grads`` and ``_apply_update``; the
+best checkpoints are light (bf16 sampling params on the ``best_every``
+cadence) and one full periodic state is written at the end.  Its draws, in
+order: the index uniforms, the augmentation parameters, the variant index,
+then the loss's; ``train_epoch_fast`` and ``validate_fast`` take them too
+(``draws``, one dict a step or a validation batch).
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
-The device-resident fast path (``training.fast_path``) is not ported and
-raises.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from psg_tpu_torch.core import tree
@@ -66,6 +77,7 @@ from psg_tpu_torch.models.vae import (
 from psg_tpu_torch.nn.layers import prepare_weights
 from psg_tpu_torch.serve.generator import resolve_device
 from psg_tpu_torch.train.common import device_batch, get_tokenizer
+from psg_tpu_torch.train.fastpath import FastPath
 from psg_tpu_torch.train.optim import (
     build_optimizer,
     ema_update,
@@ -79,10 +91,11 @@ _VAL_SEED_OFFSET = 2    # the validation draws' generator: cfg.seed + 2
 _SAMPLE_SEED_OFFSET = 20_000   # sample grid of epoch e: cfg.seed + 20000 + e
 
 
-class DiffusionTrainer:
+class DiffusionTrainer(FastPath):
     """Stage-2 trainer."""
 
     STAGE = "diffusion"
+    EPOCHS = "diffusion_epochs"
 
     def __init__(self, cfg: Config, vae_checkpoint_path, experiment_name: str = "pokemon",
                  *, device=None):
@@ -90,11 +103,6 @@ class DiffusionTrainer:
         ``vae`` and ``text`` parameters; it must exist and fit.  ``None``
         draws them from ``cfg.seed`` (as serving does without a
         checkpoint)."""
-        if cfg.training.fast_path:
-            raise NotImplementedError(
-                "training.fast_path (the device-resident path of psg_tpu/train/"
-                "fastpath.py) is not ported yet (ROADMAP Queue A item 4); set "
-                "training.fast_path=false for the classic loader path")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             configure_torch(cfg)
@@ -159,7 +167,8 @@ class DiffusionTrainer:
         self.cond_dropout = float(extra.get("cond_dropout", 0.0) or 0.0)
         self.caption_augment = int(extra.get("caption_augment", 0) or 0)
         if self.caption_augment > 0:
-            # the loader draws a variant per sample (data/loader.py)
+            # a variant per sample: drawn by the loader (data/loader.py), or by
+            # the fast step on the device
             self.ds.set_caption_variants(
                 self.caption_augment, int(extra.get("caption_aug_seed", cfg.seed)),
                 p_name_drop=float(extra.get("caption_name_drop", 0.5)))
@@ -248,6 +257,8 @@ class DiffusionTrainer:
         return smooth_l1_loss(pred, target, beta=0.1, sample_weights=sample_weights)
 
     def _text(self, frozen, batch):
+        if "text_emb" in batch:         # the fast path's precomputed embeddings
+            return batch["text_emb"]
         with torch.no_grad():
             return text_encoder_apply(frozen["text"], batch["text_ids"], batch["text_mask"],
                                       self.bert_cfg, dtype=self.compute_dtype)
@@ -339,6 +350,25 @@ class DiffusionTrainer:
                           text_bias=text_bias_from_mask(text_mask),
                           image_size=self.cfg.data.image_size, dtype=self.compute_dtype)
 
+    # -- the device-resident fast path (train/fastpath.py) -----------------------
+
+    def _fast_text_emb_fn(self):
+        return lambda ids, mask: self._text(self.frozen, {"text_ids": ids, "text_mask": mask})
+
+    def train_epoch_fast(self, epoch: int, draws=None) -> Dict[str, float]:
+        ys = self._fast_epoch(self._step, draws)
+        stats = {"loss": float(np.mean(ys["loss"])), "grad_norm": float(np.mean(ys["grad_norm"])),
+                 "grad_norm_max": float(np.max(ys["grad_norm"]))}
+        self.metrics.scalars(stats, self.state.step, prefix="diffusion_train/")
+        return stats
+
+    def validate_fast(self, epoch: int, draws=None) -> float:
+        val = self._fast_validate(lambda batch, gen, d, w: self._noise_loss(
+            self.state.params, self.frozen, batch, gen, draws=d, sample_weights=w,
+            train=False), draws)
+        self.metrics.scalar("diffusion_val/loss", val, self.state.step)
+        return val
+
     # -- loops ---------------------------------------------------------------
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
@@ -406,20 +436,6 @@ class DiffusionTrainer:
                               extra_meta=self._meta(epoch),
                               periodic=(epoch + 1) % tr.save_every == 0)
 
-    def save_checkpoint_fast(self, epoch: int, val_loss) -> bool:
-        """Best checkpoints light (bf16 sampling params only: all that
-        serving and stage 3 read); periodic full states keep their cadence."""
-        tr = self.cfg.training
-        is_best = False
-        if val_loss is not None and ((epoch + 1) % max(tr.best_every, 1) == 0
-                                     or epoch + 1 == tr.diffusion_epochs):
-            is_best = self.ckpt.save_best_light(self.state.sample_params, self.state.step,
-                                                val_loss, extra_meta=self._meta(epoch))
-        if (epoch + 1) % tr.save_every == 0:
-            self.ckpt.save(self.state, self.state.step, None,
-                           extra_meta=self._meta(epoch), periodic=True)
-        return is_best
-
     def load_checkpoint(self, path: Optional[str] = None):
         """Resume the full state a port checkpoint holds; from a checkpoint
         without one (a light best, or another optimizer layout), the params
@@ -440,6 +456,8 @@ class DiffusionTrainer:
         self.best_val = float(meta.get("metric", float("inf")))
 
     def train(self) -> Path:
+        if self.cfg.training.fast_path:
+            return self._train_fast()
         tr = self.cfg.training
         epochs = tr.diffusion_epochs
         self.log.info("stage 2: %d epochs, %d train batches/epoch on %s",
@@ -457,10 +475,5 @@ class DiffusionTrainer:
             self.log.info("epoch %d done in %.1fs: train %.4f val %.4f skipped %d",
                           epoch, time.time() - t0, stats.get("loss", 0.0), val_loss,
                           self.skipped_batches())
-        # a final periodic write whatever the cadence: a run cut into chunks
-        # must never end without a resume point
-        if epochs > self.start_epoch:
-            self.ckpt.save(self.state, self.state.step, None,
-                           extra_meta=self._meta(epochs - 1), periodic=True)
-        self.metrics.flush()
+        self._final_save(epochs)
         return self.ckpt.best_path

@@ -1,6 +1,7 @@
 """Stage 3: the text encoder fine-tuned through a reconstruction and CLIP
 loss, then jointly with the decoder and the UNet (port of
-``psg_tpu/train/stage3_final.py``, the classic loader path).
+``psg_tpu/train/stage3_final.py``: the classic loader path and the
+device-resident fast path).
 
 A step: the text encoder (BERT, projection, LayerNorm), the VAE encoder and
 ``reparameterize`` without gradient, the decoder with its text
@@ -47,9 +48,18 @@ saved in the train state) draws the reparameterize noise; ``_step`` and
 tests inject the JAX trainer's.  Validation draws from a generator seeded
 the same way for every batch, as the JAX trainer folds one fixed key.
 
+With ``training.fast_path`` ``train()`` takes the device-resident path
+(``train/fastpath.py``): the split (with CLIP's BPE ids where the dataset
+has them) on the device, each step's minibatch drawn, gathered and
+augmented there, then the classic step's ``_grads`` and ``_apply_update``;
+the switch to the joint phase happens inside the loop at
+``phase1_epochs``.  Light best checkpoints (bf16 params on the
+``best_every`` cadence) and one full periodic state at the end.  Its draws,
+in order: the index uniforms, the augmentation parameters, then the
+reparameterize noise; ``train_epoch_fast`` and ``validate_fast`` take them
+too (``draws``, one dict a step or a validation batch).
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
-The device-resident fast path (``training.fast_path``) is not ported and
-raises.
 """
 
 from __future__ import annotations
@@ -59,6 +69,7 @@ import time
 from pathlib import Path
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from psg_tpu_torch.core import tree
@@ -96,6 +107,7 @@ from psg_tpu_torch.nn.layers import prepare_weights
 from psg_tpu_torch.serve.generator import resolve_device
 from psg_tpu_torch.text.bpe import ClipBPETokenizer
 from psg_tpu_torch.train.common import device_batch, get_tokenizer
+from psg_tpu_torch.train.fastpath import FastPath
 from psg_tpu_torch.train.optim import build_optimizer, make_lr_schedule, skipped_steps
 from psg_tpu_torch.train.state import TrainState
 from psg_tpu_torch.utils.images import save_image_grid
@@ -106,10 +118,11 @@ _VAL_SEED_OFFSET = 3        # the validation draws' generator: cfg.seed + 3
 _SAMPLE_SEED_OFFSET = 30_000   # sample grid of epoch e: cfg.seed + 30000 + e
 
 
-class FinalTrainer:
+class FinalTrainer(FastPath):
     """Stage-3 trainer."""
 
     STAGE = "final"
+    EPOCHS = "final_epochs"
 
     def __init__(self, cfg: Config, vae_checkpoint_path, diffusion_checkpoint_path,
                  experiment_name: str = "pokemon", *, device=None):
@@ -117,11 +130,6 @@ class FinalTrainer:
         ``diffusion_checkpoint_path``: the stage-2 checkpoint (the UNet).  A
         path that is given must exist and fit; ``None`` draws that part
         from the seed."""
-        if cfg.training.fast_path:
-            raise NotImplementedError(
-                "training.fast_path (the device-resident path of psg_tpu/train/"
-                "fastpath.py) is not ported yet (ROADMAP Queue A item 4); set "
-                "training.fast_path=false for the classic loader path")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             configure_torch(cfg)
@@ -376,6 +384,32 @@ class FinalTrainer:
         self.state.opt_state = None      # the old moments go before the new ones come
         self.state.opt_state = self.tx.init(self.state.params)
 
+    # -- the device-resident fast path (train/fastpath.py) -----------------------
+
+    def train_epoch_fast(self, epoch: int, draws=None) -> Dict[str, float]:
+        ys = self._fast_epoch(self._step, draws)
+        stats = {k: float(np.mean(v)) for k, v in ys.items()}
+        self.metrics.scalars(stats, self.state.step, prefix="final_train/")
+        return stats
+
+    def validate_fast(self, epoch: int, draws=None) -> float:
+        val = self._fast_validate(lambda batch, gen, d, w: self._forward_loss(
+            self.state.params, batch, gen, d, sample_weights=w)[1]["total_loss"], draws)
+        self.metrics.scalar("final_val/total_loss", val, self.state.step)
+        return val
+
+    def _meta(self, epoch: int) -> Dict:
+        # the JAX package's fast path names the phase 'phase', its classic path
+        # 'training_phase' (which resuming reads): both are written
+        return {"epoch": epoch, "phase": self.phase, "training_phase": self.phase,
+                "config": self.cfg.to_dict()}
+
+    def _before_fast_epoch(self, epoch: int) -> None:
+        tr = self.cfg.training
+        phase1 = tr.phase1_epochs if tr.phase1_epochs is not None else tr.final_epochs // 2
+        if epoch >= phase1 and self.phase == "text_encoder":
+            self.switch_to_joint_training()
+
     # -- loops ---------------------------------------------------------------
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
@@ -464,6 +498,8 @@ class FinalTrainer:
                       self.start_epoch, self.best_val)
 
     def train(self) -> Path:
+        if self.cfg.training.fast_path:
+            return self._train_fast()
         t = self.cfg.training
         epochs = t.final_epochs
         phase1 = t.phase1_epochs if t.phase1_epochs is not None else epochs // 2

@@ -3,6 +3,7 @@
 the card.
 
     python3 scripts/torch_profile_train.py [--stage 0|1|2|3] [--steps 3] [--trace PATH]
+    python3 scripts/torch_profile_train.py --fast-vs-classic [--steps 3]
 
 Builds the trainer of the stage at config/train_config.yaml's full width
 (bf16, BERT-base, full VAE, 215x215, batch 32; stage 2 with the UNet
@@ -30,11 +31,24 @@ reparameterize, the decode, CLIP's image and text towers and the alignment
 loss, the backward, the optimizer of the text-encoder phase; then, after
 the switch, the joint phase's step and optimizer (text, decoder and UNet).
 Stage 0: the forward to the loss (masking, BERT in bf16, the tied head),
-the backward, the optimizer.  Needs one CUDA card; imports no JAX.
+the backward, the optimizer.
+
+``--fast-vs-classic``: config/r3_evidence.yaml (the device-resident fast
+path's recipe: batch 16, EMA 0.9995, bf16 first moment, warmup-cosine) at
+full width, for stages 1, 2 and 3 (the text-encoder phase): the classic
+step (the upload of a batch the loader made, the step) and the fast step (the
+minibatch drawn, gathered and augmented on the card, the step), in the
+order classic, fast, fast, classic, each with the line above plus the
+CUDA runtime's allocations, frees, synchronisations and copies in the
+profiled step and its heaviest host ops; then the host-to-device copies of
+one more step of each kind (``HostToDevice``: shape and bytes).  Needs one NVIDIA card (it exits otherwise); every line names the
+card and its power limit; imports no JAX.
 """
 
 import argparse
+import itertools
 import json
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -44,6 +58,7 @@ from pathlib import Path
 
 import torch
 from torch.profiler import ProfilerActivity, profile
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -70,6 +85,42 @@ def time_backwards():
             RECOMPUTE[_name].append((start, end))
             return out
         cls.backward = staticmethod(timed)
+
+
+CARD = None     # nvidia-smi's name and power limit, set in main()
+RUNTIME_CALLS = ("cudaMalloc", "cudaFree", "cudaStreamSynchronize", "cudaDeviceSynchronize",
+                 "cudaMemcpyAsync")
+
+
+class HostToDevice(TorchDispatchMode):
+    """Records every copy of a CPU tensor onto a CUDA device that goes
+    through PyTorch's dispatcher (``_to_copy``, ``copy_``) as (shape,
+    bytes).  The profiler's memcpy records are not used for this: on that
+    machine it dropped some of them, the first of a run among them."""
+
+    def __init__(self):
+        super().__init__()
+        self.copies = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        if func is torch.ops.aten._to_copy.default:
+            src, dst = args[0], out
+        elif func is torch.ops.aten.copy_.default:
+            src, dst = args[1], args[0]
+        else:
+            return out
+        if src.device.type == "cpu" and dst.device.type == "cuda":
+            self.copies.append((list(src.shape), src.numel() * src.element_size()))
+        return out
+
+
+def h2d_copies(fn, arg=None):
+    """The host-to-device copies of one call of ``fn``."""
+    with HostToDevice() as mode:
+        fn(arg)
+        torch.cuda.synchronize()
+    return mode.copies
 
 
 def measure(name, fn, reps, setup=None, trace=None):
@@ -99,9 +150,13 @@ def measure(name, fn, reps, setup=None, trace=None):
     if trace:
         prof.export_chrome_trace(trace)
     by_family, count_by_family = defaultdict(float), defaultdict(int)
-    kernels, launches, top = 0.0, 0, []
+    kernels, launches, top, host = 0.0, 0, [], []
+    runtime = defaultdict(int)
     for evt in prof.key_averages():
+        if evt.key in RUNTIME_CALLS:
+            runtime[evt.key] += evt.count
         if evt.device_type != torch.autograd.DeviceType.CUDA:
+            host.append((evt.self_cpu_time_total, evt.count, evt.key[:60]))
             continue
         us = evt.self_device_time_total
         kernels += us
@@ -111,11 +166,15 @@ def measure(name, fn, reps, setup=None, trace=None):
         top.append((us, evt.count, evt.key[:100]))
     top.sort(reverse=True)
     wall = sum(walls) / len(walls)
-    rec = {"part": name, "wall_ms": wall * 1e3, "walls_ms": [w * 1e3 for w in walls],
+    rec = {"card": CARD, "part": name, "wall_ms": wall * 1e3,
+           "wall_ms_median": statistics.median(walls) * 1e3,
+           "walls_ms": [w * 1e3 for w in walls],
            "wall_ms_profiled": wall_profiled * 1e3, "kernel_ms": kernels / 1e3,
            "kernels": launches,
            "device_idle_share": (1.0 - kernels / 1e6 / wall) if kernels else None,
-           "recomputed_backward": recomputed,
+           "recomputed_backward": recomputed, "runtime_calls": dict(runtime),
+           "top_host_ms": [{"ms": us / 1e3, "count": n, "op": k}
+                           for us, n, k in sorted(host, reverse=True)[:8]],
            "by_family_ms": {k: v / 1e3 for k, v in sorted(by_family.items(),
                                                           key=lambda kv: -kv[1])},
            "by_family_kernels": dict(count_by_family),
@@ -275,7 +334,8 @@ def profile_stage3(cfg, args):
                     args.steps)
     measure("optimizer, joint phase", lambda g: tr.tx.update(p, g, tr.state.opt_state),
             args.steps, setup=lambda: tr._grads(batch)[1])
-    print(json.dumps({"joint_samples_per_s": bs / (joint["wall_ms"] / 1e3)}), flush=True)
+    print(json.dumps({"card": CARD, "joint_samples_per_s": bs / (joint["wall_ms"] / 1e3)}),
+          flush=True)
     return bs, step, tr.skipped_batches()
 
 
@@ -309,6 +369,59 @@ def profile_stage0(cfg, args):
     return bs, step, 0
 
 
+def fast_vs_classic(cfg, args):
+    """The classic and the fast step of stages 1, 2 and 3, in turns."""
+    import gc
+
+    from psg_tpu_torch.train.stage1_vae import VAETrainer
+    from psg_tpu_torch.train.stage2_diffusion import DiffusionTrainer
+    from psg_tpu_torch.train.stage3_final import FinalTrainer
+
+    out = {}
+    for stage, make in ((1, lambda: VAETrainer(cfg, experiment_name="fvc", device="cuda")),
+                        (2, lambda: DiffusionTrainer(cfg, None, experiment_name="fvc",
+                                                     device="cuda")),
+                        (3, lambda: FinalTrainer(cfg, None, None, experiment_name="fvc",
+                                                 device="cuda"))):
+        tr = make()
+        tr._setup_fast_data()
+        extra = (tr.kl_weight(1),) if stage == 1 else ()
+
+        it = itertools.cycle(list(tr.train_loader))     # one epoch of host batches
+        bs = cfg.data.batch_size
+
+        def classic(_):
+            return tr._step(tr._batch(next(it)), *extra)
+
+        def fast(_):
+            return tr._step(tr._fast_batch(), *extra)
+
+        classic(None)                      # warm-up: cuDNN and cuBLAS pick kernels
+        fast(None)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        recs = [measure(f"stage {stage} {kind} step (batch {bs})", fn, args.steps)
+                for kind, fn in (("classic", classic), ("fast", fast), ("fast", fast),
+                                 ("classic", classic))]
+        out[stage] = {"classic_wall_ms": [recs[0]["wall_ms"], recs[3]["wall_ms"]],
+                      "fast_wall_ms": [recs[1]["wall_ms"], recs[2]["wall_ms"]],
+                      "classic_wall_ms_median": [recs[0]["wall_ms_median"],
+                                                 recs[3]["wall_ms_median"]],
+                      "fast_wall_ms_median": [recs[1]["wall_ms_median"],
+                                              recs[2]["wall_ms_median"]],
+                      "classic_device_ms": [recs[0]["kernel_ms"], recs[3]["kernel_ms"]],
+                      "fast_device_ms": [recs[1]["kernel_ms"], recs[2]["kernel_ms"]],
+                      "classic_h2d_copies": h2d_copies(classic),
+                      "fast_h2d_copies": h2d_copies(fast),
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "skipped_batches": tr.skipped_batches()}
+        print(json.dumps({"card": CARD, "stage": stage, **out[stage]}), flush=True)
+        del tr, it
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def measure_out(name, fn, reps):
     """``measure``, then one more call whose output the next part takes."""
     measure(name, fn, reps)
@@ -322,9 +435,11 @@ def main():
     ap.add_argument("--stage", type=int, default=2, choices=(0, 1, 2, 3))
     ap.add_argument("--steps", type=int, default=3, help="unprofiled runs per part")
     ap.add_argument("--trace", help="write the whole step's chrome trace here")
+    ap.add_argument("--fast-vs-classic", action="store_true",
+                    help="the fast and the classic step of stages 1-3 (r3_evidence.yaml)")
     args = ap.parse_args()
-    if not torch.cuda.is_available():
-        sys.exit("torch_profile_train: needs a CUDA device")
+    if not torch.cuda.is_available() or "NVIDIA" not in torch.cuda.get_device_name(0):
+        sys.exit("torch_profile_train: needs an NVIDIA CUDA device")
 
     from psg_tpu_torch import ops
     from psg_tpu_torch.core.config import load_config
@@ -332,22 +447,29 @@ def main():
     from psg_tpu_torch.ops import cuda_build
 
     cuda_build.build_all(ops.KERNELS)
+    global CARD
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    print(json.dumps({"card": smi, "torch": torch.__version__}), flush=True)
+    CARD = smi.splitlines()[0]
+    print(json.dumps({"card": CARD, "torch": torch.__version__}), flush=True)
     with tempfile.TemporaryDirectory(prefix="profile_train_") as tmp:
         csv, images = write_sprite_corpus(Path(tmp) / "corpus", n=128, seed=0, size=215)
         (Path(tmp) / "exp").mkdir()
         (Path(tmp) / "exp" / "vocab.txt").write_bytes(
             (ROOT / "experiments" / "evidence_r5c_vae" / "vocab.txt").read_bytes())
-        cfg = load_config(ROOT / "config" / "train_config.yaml",
+        config = "r3_evidence.yaml" if args.fast_vs_classic else "train_config.yaml"
+        cfg = load_config(ROOT / "config" / config,
                           [f"experiment_dir={Path(tmp) / 'exp'}", f"data.csv_path={csv}",
                            f"data.image_dir={images}"])
         time_backwards()
+        if args.fast_vs_classic:
+            fast_vs_classic(cfg, args)
+            print(smi, flush=True)
+            return
         bs, step, skipped = {0: profile_stage0, 1: profile_stage1, 2: profile_stage2,
                              3: profile_stage3}[args.stage](cfg, args)
-        print(json.dumps({"samples_per_s": bs / (step["wall_ms"] / 1e3),
+        print(json.dumps({"card": CARD, "samples_per_s": bs / (step["wall_ms"] / 1e3),
                           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                           "skipped_batches": skipped}), flush=True)
     print(smi, flush=True)

@@ -38,9 +38,10 @@ def _imported_roots(path: Path):
 def test_port_modules_are_all_found():
     for name in ("serve.generator", "serve.app", "serve.hub", "data.dataset",
                  "data.synthetic", "eval.metrics", "ops.spatial_xattn", "text.bpe",
-                 "models.clip", "train.stage3_final", "train.stage0_mlm"):
+                 "models.clip", "train.stage3_final", "train.stage0_mlm",
+                 "train.fastpath", "data.device_augment"):
         assert f"psg_tpu_torch.{name}" in MODULES, name
-    assert len(MODULES) >= 39
+    assert len(MODULES) >= 40
 
 
 def test_bpe_needs_no_regex_package():

@@ -3,7 +3,8 @@ sprite corpus made from a seed: ``--stage 2`` trains one epoch of two steps,
 writes its checkpoints and a sample grid, and ``python -m
 psg_tpu_torch.serve.app --device cpu`` serves a sprite from what it wrote;
 ``--stage 3`` alone, ``--stage all`` (1 -> 2 -> 3, then served as a final
-bundle) and ``--stage 0`` followed by a warm-started ``--stage 1``.  Both CLIs are driven
+bundle) on the classic path and on the device-resident fast path, and
+``--stage 0`` followed by a warm-started ``--stage 1``.  Both CLIs are driven
 in-process, with ``HF_HUB_OFFLINE=1`` and any DNS lookup failing the test."""
 
 import json
@@ -68,7 +69,6 @@ def test_train_stage2_then_serve(tmp_path, offline, capsys):
 @pytest.mark.parametrize("argv,match", [
     (["--stage", "2", "--use-diffusers"], "use-diffusers"),
     (["--stage", "all", "--use-diffusers"], "use-diffusers"),
-    (["--stage", "3", "--override", "training.fast_path=true"], "fast_path"),
 ])
 def test_unported_stages_raise(argv, match, tmp_path):
     with pytest.raises(NotImplementedError, match=match):
@@ -127,6 +127,39 @@ def test_train_all_then_serve_the_final_bundle(tmp_path, offline, capsys, caplog
                        + ["extra.serve_prefer_final=true"]]) == 0
     printed = capsys.readouterr().out
     assert "loaded=final-bundle" in printed and f"vae={final}" in printed
+    assert sprite.exists()
+
+
+def test_train_all_fast_path_then_serve_the_final_bundle(tmp_path, offline, capsys, caplog):
+    """``--stage all`` with ``training.fast_path=true`` (caption variants,
+    EMA, a bf16 first moment and warmup-cosine, as config/r3_evidence.yaml
+    sets them): each stage takes the fast path and hands the next its light
+    best; the serving CLI serves stage 3's light best as a final bundle."""
+    corpus = write_sprite_corpus(tmp_path / "corpus", n=9, seed=1, size=64)
+    fast = ["training.fast_path=true", "extra.caption_augment=2", "optimization.ema_decay=0.9",
+            "optimization.mu_dtype=bfloat16", "optimization.scheduler=warmup_cosine",
+            "optimization.warmup_steps=2", "training.final_epochs=1",
+            "training.phase1_epochs=0"]
+    with caplog.at_level(logging.INFO):
+        assert cli.main(["--stage", "all"] + _train_args(tmp_path, corpus, *fast)) == 0
+    exp = tmp_path / "exp"
+    best = {s: exp / f"cli_{s}" / "checkpoints" / f"{s}_best_model.ckpt"
+            for s in ("vae", "diffusion", "final")}
+    assert all(json.loads(b.with_suffix(".json").read_text())["light"] for b in best.values())
+    assert all(f"{s} stage (fast path)" in caplog.text for s in best)
+    assert f"loaded frozen VAE/text from {best['vae']}" in caplog.text
+    assert f"loaded UNet from {best['diffusion']}" in caplog.text
+    assert "switching to joint training" in caplog.text
+    capsys.readouterr()
+
+    sprite = tmp_path / "sprite.png"
+    assert app.main(["--device", "cpu", "--config", str(tmp_path / "none.yaml"),
+                     "--experiment-name", "cli", "--prompt", "a red fire creature",
+                     "--steps", "2", "--out", str(sprite)]
+                    + [f"--override={o}" for o in _model_overrides(tmp_path, corpus)
+                       + ["extra.serve_prefer_final=true"]]) == 0
+    printed = capsys.readouterr().out
+    assert "loaded=final-bundle" in printed and f"vae={best['final']}" in printed
     assert sprite.exists()
 
 

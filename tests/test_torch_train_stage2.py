@@ -8,7 +8,20 @@ reparameterize noise, t, the noise, the cond-dropout mask and the attention
 dropout masks, split from the step key as the JAX trainer splits it) are
 injected into the port.  Bounds: loss within rel 1e-5 (fp32); UNet
 gradients per leaf within 1e-4 * max|g_jax| + 1e-7; params and EMA after a
-step within 1e-6."""
+step within 1e-6.
+
+The fast path (``_fast_epoch_impl``, ``_fast_val_impl``) with augmentation
+on: JAX's index uniforms and augmentation draws (fold_in(rng, step), split
+5) are injected too.  The augmented images then differ from JAX's by at
+most 1e-4 a pixel away from the crop's edge and 1e-5 on average
+(tests/test_torch_fastpath.py), which the frozen VAE encoder takes in
+without gain at this size: the loss and grad-norm bounds hold unchanged.
+Params and EMA after the two steps: within 1e-6 wherever the gradient is
+determined in both steps (|g| at least 100 times the gradients' bound, the
+rule of tests/test_torch_train_stage1.py, judged on the port's own
+gradients, which are within that bound of JAX's): Adam divides each
+gradient element by its own running size, so an element whose gradient is
+rounding noise moves by a rounding-dependent amount in either package."""
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +44,8 @@ from psg_tpu_torch.models.unet import unet_block_count
 from psg_tpu_torch.nn.layers import prepare_weights
 from psg_tpu_torch.serve import hub
 from psg_tpu_torch.train.stage2_diffusion import DiffusionTrainer
+from test_torch_fastpath import _jax_params as jax_augment_params
+from test_torch_fastpath import assert_determined_close, recorded_grads
 
 CAPTIONS = ["a small green creature with leaves", "a red fire lizard with a flame"]
 
@@ -117,19 +132,25 @@ def _dropout_masks(spec, key, batch: int, rate: float):
     return out
 
 
-def _draws(jt, key, rate: float):
-    """(k_loss, k_drop, the port's draws) as the JAX trainer splits them."""
-    k_loss, k_drop = jax.random.split(key)
+def _loss_draws(jt, k_loss, k_drop, rate: float, train: bool = True):
+    """The port's loss draws from JAX's loss and dropout keys."""
     k_rep, k_t, k_noise, k_cond = jax.random.split(k_loss, 4)
     lat = (2, jt.latent_size, jt.latent_size, jt.cfg.model.latent_dim)
     d = {"rep_noise": jax.random.normal(k_rep, lat, jnp.float32),
          "t": jax.random.randint(k_t, (2,), 0, jt.schedule.num_timesteps),
-         "noise": jax.random.normal(k_noise, lat, jnp.float32),
-         "keep": jax.random.uniform(k_cond, (2, 1, 1)) >= jt.cond_dropout}
+         "noise": jax.random.normal(k_noise, lat, jnp.float32)}
+    if train:
+        d["keep"] = jax.random.uniform(k_cond, (2, 1, 1)) >= jt.cond_dropout
     d = {k: torch.from_numpy(np.array(v)) for k, v in d.items()}
-    if rate > 0:
+    if train and rate > 0:
         d["dropout"] = _dropout_masks(jt.spec, k_drop, 2, rate)
-    return k_loss, k_drop, d
+    return d
+
+
+def _draws(jt, key, rate: float):
+    """(k_loss, k_drop, the port's draws) as the JAX trainer splits them."""
+    k_loss, k_drop = jax.random.split(key)
+    return k_loss, k_drop, _loss_draws(jt, k_loss, k_drop, rate)
 
 
 def _configure(jt, pt, **kw):
@@ -285,12 +306,71 @@ def test_checkpoints_jax_reads_and_port_resumes(jax_trainer, port_trainer):
                                rng=pt.state.rng)
 
 
+def _fast_draws(jt, step: int):
+    """JAX's draws for the fast step at ``step`` (fold_in(rng, step), split
+    5): the index uniforms, the augmentation draws, the loss's."""
+    k_idx, k_aug, k_loss, k_drop, k_var = jax.random.split(
+        jax.random.fold_in(jt.state.rng, step), 5)
+    n = jt._train_data["images"].shape[0]
+    return {"uniforms": torch.from_numpy(np.array(jax.random.uniform(k_idx, (n,)))),
+            "augment": jax_augment_params(k_aug, 2),
+            **_loss_draws(jt, k_loss, k_drop, jt.spec.attn_dropout)}
+
+
+def test_fast_epoch_and_validation_match(jax_trainer, port_trainer):
+    """JAX's fast epoch (2 scanned steps: draw, gather, augment, the
+    precomputed frozen embeddings, loss, optax, EMA) against the port's
+    train_epoch_fast with JAX's draws: the split on the device, the epoch's
+    mean loss and grad norms, the params and EMA after it; then the fast
+    validation over the padded eval batches (fold_in(fold_in(rng, -2), i)
+    a batch) from the state both reached."""
+    jt, pt = jax_trainer, port_trainer
+    jt._setup_fast_data()
+    pt._setup_fast_data()
+    for k in ("images", "text_ids", "text_mask"):
+        np.testing.assert_array_equal(pt._train_data[k].numpy(), np.asarray(jt._train_data[k]))
+    np.testing.assert_allclose(pt._train_data["text_emb"].numpy(),
+                               np.asarray(jt._train_data["text_emb"]), rtol=0, atol=1e-5)
+    jt._fast_len = 2
+    draws = [_fast_draws(jt, int(jt.state.step) + s) for s in range(2)]
+    state, ys = jt._fast_epoch_impl(jt.state, jt.frozen, jt._train_data)
+    before = tree.map(lambda t: t.detach().clone(), pt.state.params)
+    with recorded_grads(pt) as seen:
+        stats = pt.train_epoch_fast(0, draws)
+    gn = np.asarray(ys["grad_norm"])
+    np.testing.assert_allclose(stats["loss"], float(np.mean(ys["loss"])), rtol=1e-5)
+    np.testing.assert_allclose([stats["grad_norm"], stats["grad_norm_max"]],
+                               [gn.mean(), gn.max()], rtol=1e-4)
+    assert pt.state.step == int(state.step) == 2
+    for name, ref, mine in (("params", state.params, pt.state.params),
+                            ("ema", state.ema, pt.state.ema)):
+        assert_determined_close(mine, bridge.from_jax(_np(ref)), seen, name)
+
+    ev = jt._val_data
+    val_draws = [_loss_draws(jt, jax.random.fold_in(jax.random.fold_in(
+        state.rng, jnp.int32(-2)), i), None, 0.0, train=False)
+        for i in range(ev["images"].shape[0])]
+    ref_val = float(jt._fast_val_impl(state, jt.frozen, ev))
+    np.testing.assert_allclose(pt.validate_fast(0, val_draws), ref_val, rtol=1e-5)
+    # leave the module's trainers at their initial parameters
+    pt.state = pt._fresh_state(before, step=0, rng=pt.state.rng)
+
+
 def test_fast_path_and_missing_checkpoint_raise(port_trainer, tmp_path):
+    """train() with training.fast_path (which raised before the fast path
+    was ported) runs an epoch on its own draws and writes the light best
+    and the final full state; a named stage-1 checkpoint that is missing
+    raises."""
     cfg = port_trainer.cfg
-    bad = Config(**{**cfg.__dict__})
-    bad.training = type(cfg.training)(**{**cfg.training.__dict__, "fast_path": True})
-    with pytest.raises(NotImplementedError, match="fast_path"):
-        DiffusionTrainer(bad, None, experiment_name="f", device="cpu")
+    fast = Config(**{**cfg.__dict__})
+    fast.training = type(cfg.training)(**{**cfg.training.__dict__, "fast_path": True,
+                                          "sample_every": 100})
+    t = DiffusionTrainer(fast, None, experiment_name="f", device="cpu")
+    best = t.train()
+    assert jax_load_metadata(best)["light"] is True and t.state.step == t._fast_len
+    assert (t.ckpt.dir / f"diffusion_step_{t.state.step:08d}.ckpt").exists()
+    assert np.isfinite(t.best_val) and set(t._val_data) == {
+        "images", "text_ids", "text_mask", "weight", "text_emb"}
     with pytest.raises(FileNotFoundError):
         DiffusionTrainer(cfg, tmp_path / "missing.ckpt", experiment_name="m", device="cpu")
 

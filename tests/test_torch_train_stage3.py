@@ -11,7 +11,10 @@ PERF.md section 2 states them for stages 1 and 2): loss within rel 1e-5;
 gradients per leaf within 1e-4 * max|g_jax| + 1e-7; grad_norm within rel
 1e-5; params after a step within 1e-6 (where the port's optimizer takes the
 JAX gradients; from its own gradients, wherever the gradient is determined,
-as in tests/test_torch_train_stage1.py); sample images within MAE 1e-3."""
+as in tests/test_torch_train_stage1.py); sample images within MAE 1e-3.
+The fast path (``_fast_epoch_impl``, ``_fast_val_impl``, one step with
+``data.augment`` off, JAX's index uniforms and noises injected) is held to
+the same bounds."""
 
 import json
 import logging
@@ -37,6 +40,7 @@ from psg_tpu_torch.models import bridge
 from psg_tpu_torch.nn.layers import prepare_weights
 from psg_tpu_torch.train import stage3_final
 from psg_tpu_torch.train.stage3_final import FinalTrainer
+from test_torch_fastpath import assert_determined_close, recorded_grads
 
 CAPTIONS = ["a small green creature with leaves", "a red fire lizard with a flame"]
 
@@ -387,10 +391,46 @@ def test_resume_from_phase1_and_from_a_joint_checkpoint(jax_trainer, port_traine
     _carry_across(pt, jt)
 
 
+def test_fast_epoch_and_validation_match(jax_trainer, port_trainer):
+    """JAX's fast epoch (1 scanned step: draw, gather, loss, optax, phase
+    1) against the port's train_epoch_fast with JAX's draws (fold_in(rng,
+    step), split 3), augmentation off; then the fast validation
+    (fold_in(fold_in(rng, -3), i) a batch) from the state both reached."""
+    jt, pt = jax_trainer, port_trainer
+    jt.cfg.data.augment = pt.cfg.data.augment = False
+    try:
+        jt._setup_fast_data()
+        pt._setup_fast_data()
+        jt._fast_len = 1
+        k_idx, _, k_loss = jax.random.split(jax.random.fold_in(jt.state.rng, jt.state.step), 3)
+        n = jt._train_data["images"].shape[0]
+        draws = [{"uniforms": torch.from_numpy(np.array(jax.random.uniform(k_idx, (n,)))),
+                  "rep_noise": torch.from_numpy(np.array(jax.random.normal(k_loss,
+                                                                           _latent(jt))))}]
+        state, ys = jt._fast_epoch_impl(jt.state, jt.clip_params, jt._train_data)
+        with recorded_grads(pt) as seen:
+            stats = pt.train_epoch_fast(0, draws)
+    finally:
+        jt.cfg.data.augment = pt.cfg.data.augment = True
+    for k in ("total_loss", "l1_loss", "mse_loss", "clip_loss", "grad_norm"):
+        np.testing.assert_allclose(stats[k], float(np.asarray(ys[k])[0]), rtol=1e-5, err_msg=k)
+    assert pt.state.step == int(state.step) == 1
+    assert_determined_close(pt.state.params, bridge.from_jax(_np(state.params)), seen,
+                            "params")
+    val_draws = [{"rep_noise": torch.from_numpy(np.array(jax.random.normal(
+        jax.random.fold_in(jax.random.fold_in(state.rng, jnp.int32(-3)), i), _latent(jt))))}
+        for i in range(jt._val_data["images"].shape[0])]
+    ref = float(jt._fast_val_impl(state, jt.clip_params, jt._val_data))
+    np.testing.assert_allclose(pt.validate_fast(0, val_draws), ref, rtol=1e-5)
+    _carry_across(pt, jt)
+
+
 def test_named_weights_must_exist(port_trainer, tmp_path, monkeypatch, caplog):
     """A named CLIP checkpoint, CLIP BPE directory, VAE or diffusion
-    checkpoint must exist; the fast path is not ported; with nothing named
-    the log says what was drawn."""
+    checkpoint must exist; with nothing named the log says what was drawn.
+    With training.fast_path, train() runs the fast path, switching to the
+    joint phase at its first epoch (phase1_epochs 0), and writes a light
+    joint best."""
     cfg = port_trainer.cfg
     with monkeypatch.context() as m:
         m.setenv("PSG_TPU_CLIP", str(tmp_path / "missing.ckpt"))
@@ -404,9 +444,15 @@ def test_named_weights_must_exist(port_trainer, tmp_path, monkeypatch, caplog):
         with pytest.raises(FileNotFoundError, match="checkpoint not found"):
             FinalTrainer(cfg, vae, diff, experiment_name="w", device="cpu")
     fast = Config(**{**cfg.__dict__})
-    fast.training = type(cfg.training)(**{**cfg.training.__dict__, "fast_path": True})
-    with pytest.raises(NotImplementedError, match="fast_path"):
-        FinalTrainer(fast, None, None, experiment_name="f", device="cpu")
+    fast.training = type(cfg.training)(**{**cfg.training.__dict__, "fast_path": True,
+                                          "final_epochs": 1, "phase1_epochs": 0})
+    with caplog.at_level(logging.INFO):
+        t = FinalTrainer(fast, None, None, experiment_name="f", device="cpu")
+        best = t.train()
+    meta = jax_load_metadata(best)
+    assert meta["light"] is True and meta["training_phase"] == meta["phase"] == "joint"
+    assert t.phase == "joint" and "switching to joint training" in caplog.text
+    assert (t.ckpt.dir / f"final_step_{t.state.step:08d}.ckpt").exists()
     with caplog.at_level(logging.INFO):
         t = FinalTrainer(cfg, None, None, experiment_name="w", device="cpu")
     assert "clip=random-init (text ids: WordPiece)" in caplog.text

@@ -127,6 +127,22 @@ prints one JSON line per phase:
                 peak memory, launches against ``predicted_fast_launches``,
                 every checkpoint's bytes and seconds; then serving loads
                 stage 3's light best as a final bundle and serves DPM-10.
+11. ``sd``     the SD-1.5 UNet (``--use-diffusers`` stage 2).  (a) Flash
+                attention (head dims 40, 80, 160; 27^2 self and cross on
+                prompt-masked text keys) and GN+SiLU (27^2x960, 14^2x1920,
+                4^2x2560) against their plain versions at batch 32 in bf16,
+                with the same times and bounds as phase 2.  (b) The tiny SD
+                trainer (with the text projection) on the card against the
+                CPU in fp32, 3 steps, to phase 6b's bounds.  (c)
+                config/train_config.yaml at full width (SD-1.5, 768-d
+                cross-attention, BERT-base 'minimal', the frozen full VAE and
+                the text encoder from phase 7's best, the cosine schedule,
+                bf16, batch 32) on the 128 sprites: train_epoch (3 steps),
+                validate, one best write and generate_samples (8 prompts, 50
+                x0-DDPM steps); step walls, samples/s, one step's device
+                time, peak memory, the checkpoint's bytes and seconds, the
+                parameter counts, and launches against
+                ``predicted_sd_launches``.
 Phase 6c runs after phase 7: its frozen VAE and text encoder come from
 phase 7's checkpoint, and serving resolves the pair.
 In phases 4-9 images must be finite and of the right shape, a seed must
@@ -138,7 +154,7 @@ Phase 2 holds GroupNorm+SiLU at the decoder's and the UNet's sites and, at
 batch 1 and 4, at the VAE encoder's (107^2x32 with one channel a group,
 53^2x64, 27^2x128).  Then the card's name and power limit, the ``kernels``
 line (each kernel at its heaviest main-path shape, with its launches summed
-over phases 4-10, and the spatial kernel's gradient: its Function's forward
+over phases 4-11, and the spatial kernel's gradient: its Function's forward
 and backward at phase 7a's main case, launched in phase 7c's steps), and last
 ``{"ok": true, "device": {...}}``.  ``--json PATH`` also writes every
 phase's record to PATH.
@@ -2411,6 +2427,220 @@ def phase_fast_full_width(tmp, corpus):
             "loaded": loaded, "serve_launches": got, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the SD-1.5 UNet (--use-diffusers stage 2)
+# ---------------------------------------------------------------------------
+
+SD_BATCH = 32
+SD_STEPS = 3               # the full-width epoch: 128 sprites, batch 32
+SD_SAMPLES, SD_SAMPLE_STEPS = 8, 50   # generate_samples: prompts, x0-DDPM steps
+SD_UNET_PARAMS = 859_544_008          # SD-1.5's UNet adapted to 8 latent channels
+
+
+def sd_cases():
+    """(a) The kernels at the SD UNet's shapes that no earlier phase reaches,
+    batch 32, bf16: flash at head dims 40 (27^2, self and cross on the text
+    keys), 80 and 160; GN+SiLU on the up path's 960- and 1920-channel
+    concatenations and the 4^2 x 2560 site."""
+    bf16, b = torch.bfloat16, SD_BATCH
+    return [flash_case("sd 27^2 self hd40", b, 8, 729, 729, 40, False, bf16),
+            flash_case("sd 27^2 cross hd40", b, 8, 729, 128, 40, True, bf16),
+            flash_case("sd 14^2 self hd80", b, 8, 196, 196, 80, False, bf16),
+            flash_case("sd 7^2 self hd160", b, 8, 49, 49, 160, False, bf16),
+            gn_case("sd 27^2x960 G32", b, 27, 960, 32, bf16),
+            gn_case("sd 14^2x1920 G32", b, 14, 1920, 32, bf16),
+            gn_case("sd 4^2x2560 G32", b, 4, 2560, 32, bf16)]
+
+
+def predicted_sd_launches(trainer, n_unet_evals, *, text_encodes=1, encodes=0, decodes=0):
+    """Forward launches from the SD UNet's structure: per evaluation two
+    GN+SiLU per resnet plus conv_norm_out, and two attention calls per
+    transformer; the text encodes and VAE passes as ``predicted_launches``
+    counts them."""
+    spec = trainer.spec
+    nlvl, lpb = len(spec.channels), spec.layers_per_block
+    resnets = nlvl * lpb + 2 + nlvl * (lpb + 1)
+    transformers = (nlvl - 1) * lpb + 1 + (nlvl - 1) * (lpb + 1)
+    out = predicted_launches(trainer, 0, text_encodes=text_encodes, encodes=encodes,
+                             decodes=decodes)
+    out["group_norm_silu"] += n_unet_evals * (2 * resnets + 1)
+    out["flash_attention"] += n_unet_evals * 2 * transformers
+    return out
+
+
+def phase_sd_card_vs_cpu(tmp):
+    """(b) The tiny SD trainer (the tiny SD spec, the text projection 48 ->
+    768, T 50) on the CPU (plain versions) and on the card (kernels) in
+    fp32, the same parameters, batches and draws: the first step's loss and
+    every leaf's gradient, then the parameters after 3 steps."""
+    from psg_tpu_torch import ops
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.data.synthetic import write_sprite_corpus
+    from psg_tpu_torch.models import bridge
+    from psg_tpu_torch.nn.layers import prepare_weights
+    from psg_tpu_torch.train.stage2_sd import SDDiffusionTrainer
+
+    corpus = write_sprite_corpus(Path(tmp) / "sd_corpus", n=12, seed=0, size=64)
+    cfg = _tiny_train_config(Path(tmp) / "sd_exp", corpus)
+    cfg.extra = {}
+    cpu = SDDiffusionTrainer(cfg, None, experiment_name="cpu", device="cpu")
+    card = SDDiffusionTrainer(cfg, None, experiment_name="card", device="cuda")
+    card.frozen_vae = prepare_weights(bridge.fit(card.frozen_vae, cpu.frozen_vae))
+    card.state = card._fresh_state(bridge.fit(card.state.params, cpu.state.params), step=0,
+                                   rng=card.state.rng)
+    rs = np.random.RandomState(0)
+    batches = [next(iter(cpu.train_loader)) for _ in range(3)]
+    b = cfg.data.batch_size
+    lat = (b, cpu.latent_size, cpu.latent_size, cfg.model.latent_dim)
+    draws = [{"rep_noise": torch.from_numpy(rs.randn(*lat).astype(np.float32)),
+              "t": torch.from_numpy(rs.randint(0, cpu.schedule.num_timesteps, b)),
+              "noise": torch.from_numpy(rs.randn(*lat).astype(np.float32))}
+             for _ in batches]
+    ops.reset_launch_counts()
+    loss_cpu, g_cpu = cpu._grads(cpu._batch(batches[0]), draws[0])
+    loss_card, g_card = card._grads(card._batch(batches[0]), draws[0])
+    counts = ops.launch_counts()
+    want = predicted_sd_launches(card, 1, encodes=1)
+    if counts != want:
+        fail(f"sd card vs CPU: first step's launches {counts} != predicted {want}")
+    loss_rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
+    if not loss_rel <= TRAIN_LOSS_RTOL:
+        fail(f"sd card vs CPU: loss rel diff {loss_rel:.3g} > {TRAIN_LOSS_RTOL}")
+    grad_err = 0.0
+    for (path, r), (_, g) in zip(tree.items(g_cpu), tree.items(g_card)):
+        err = (g.float().cpu() - r).abs().max().item()
+        lim = TRAIN_GRAD_RTOL * r.abs().max().item() + 1e-6
+        grad_err = max(grad_err, err / lim)
+        if not err <= lim:
+            fail(f"sd card vs CPU: gradient {path} max|dg| {err:.3g} > {lim:.3g}")
+    cpu._apply_update(loss_cpu, g_cpu)
+    card._apply_update(loss_card, g_card)
+    for batch, d in zip(batches[1:], draws[1:]):
+        cpu._step(cpu._batch(batch), d)
+        card._step(card._batch(batch), d)
+    param_err = max((a.detach().cpu() - r.detach()).abs().max().item() for a, r in zip(
+        tree.leaves(card.state.params), tree.leaves(cpu.state.params)))
+    if not param_err <= TRAIN_PARAM_ATOL:
+        fail(f"sd card vs CPU: params after 3 steps {param_err:.3g} > {TRAIN_PARAM_ATOL}")
+    return {"train_mode": card.train_mode, "loss_cpu": float(loss_cpu),
+            "loss_card": float(loss_card), "loss_rel": loss_rel, "loss_rtol": TRAIN_LOSS_RTOL,
+            "grad_err_over_bound": grad_err, "grad_rtol": TRAIN_GRAD_RTOL,
+            "params_after_3_steps_max_abs": param_err, "params_atol": TRAIN_PARAM_ATOL,
+            "first_step_launches": counts}
+
+
+def phase_sd_full_width(exp, corpus, vae_checkpoint):
+    """(c) ``--use-diffusers`` stage 2 at full width: config/train_config.yaml
+    (SD-1.5 with 768-d cross-attention, no text projection; BERT-base trained
+    with the 'minimal' strategy; the cosine schedule; bf16, batch 32), the
+    frozen VAE and the text encoder from phase 7's best, on the 128 sprites:
+    train_epoch (3 steps), validate, one best write (save_checkpoint) and
+    generate_samples (8 prompts, 50 x0-DDPM steps, then the VAE decode).
+    The epoch count and the sample and save cadences are cut here, not in
+    the file.  Counts are set to 0 before train_epoch and read after the
+    samples; one more step is then profiled for its device time."""
+    from psg_tpu_torch import ops
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.core.config import load_config
+    from psg_tpu_torch.diffusion.sampling import x0_timesteps
+    from psg_tpu_torch.train.stage2_sd import SDDiffusionTrainer
+
+    cfg = load_config(CONFIG, [f"experiment_dir={exp}", f"data.csv_path={corpus[0]}",
+                               f"data.image_dir={corpus[1]}", "training.diffusion_epochs=1",
+                               "training.sample_every=1", "training.save_every=1000"])
+    if (cfg.model.compute_dtype, cfg.data.batch_size, cfg.model.cross_attention_dim) != (
+            "bfloat16", SD_BATCH, 768):
+        fail(f"{CONFIG.name} is not the bf16 batch-32 768-d configuration")
+    t0 = time.perf_counter()
+    trainer = SDDiffusionTrainer(cfg, vae_checkpoint, experiment_name="smoke", device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    if len(trainer.train_loader) != SD_STEPS:
+        fail(f"the SD epoch has {len(trainer.train_loader)} steps, not {SD_STEPS}")
+    n_unet = sum(t.numel() for t in tree.leaves(trainer.state.params["sd"]))
+    n_text = sum(t.numel() for t in tree.leaves(trainer.state.params["text"]))
+    if n_unet != SD_UNET_PARAMS or "text_projection" in trainer.state.params["sd"]:
+        fail(f"the SD wrapper has {n_unet} parameters, not {SD_UNET_PARAMS} (no projection)")
+    trainable = sum(p.numel() for p, lab in zip(tree.leaves(trainer.state.params),
+                                                trainer.tx.labels) if lab != "frozen")
+    watch = [t.detach().clone() for t in tree.leaves(trainer.state.params)[::53]]
+
+    step_s, step_loss = [], []
+    orig_step = trainer._step
+
+    def timed_step(batch, draws=None):
+        t = time.perf_counter()
+        parts = orig_step(batch, draws)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        step_loss.append(float(parts["loss"]))
+        return parts
+
+    trainer._step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()          # this path's counted run starts here
+    per_step = predicted_sd_launches(trainer, 1, encodes=1)
+    evals = len(x0_timesteps(cfg.model.num_timesteps, SD_SAMPLE_STEPS))
+    want = {"train_epoch": {k: SD_STEPS * v for k, v in per_step.items()},
+            "validate": {k: len(trainer.val_loader) * v for k, v in per_step.items()},
+            "generate_samples": predicted_sd_launches(trainer, evals, decodes=1)}
+    got = {}
+
+    def part(name, fn):
+        before = ops.launch_counts()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        if name is not None:
+            got[name] = {k: v - before[k] for k, v in ops.launch_counts().items()}
+        return out, time.perf_counter() - t
+
+    stats, epoch_s = part("train_epoch", lambda: trainer.train_epoch(0))
+    peak = torch.cuda.max_memory_allocated()
+    val, val_s = part("validate", lambda: trainer.validate(0))
+    t0 = time.perf_counter()
+    if not trainer.save_checkpoint(0, val):
+        fail("save_checkpoint wrote no best checkpoint")
+    save_s = time.perf_counter() - t0
+    grid, sample_s = part("generate_samples", lambda: trainer.generate_samples(
+        0, num=SD_SAMPLES, steps=SD_SAMPLE_STEPS))
+    launches = ops.launch_counts()     # ... and ends here
+    for name in want:
+        if got[name] != want[name]:
+            fail(f"sd {name}: kernel launches {got[name]} != predicted {want[name]}")
+    best = trainer.ckpt.best_path
+    ckpt = sorted(p.name for p in best.parent.iterdir())
+    if ckpt != ["diffusers_best_model.ckpt", "diffusers_best_model.json"]:
+        fail(f"the SD epoch wrote {ckpt}, not one best")
+    batch = trainer._batch(next(iter(trainer.train_loader)))
+    _, step_device_ms = _device_ms(lambda: orig_step(batch))
+    skipped = trainer.skipped_batches()
+    changed = sum(not torch.equal(a, b.detach()) for a, b in zip(
+        watch, tree.leaves(trainer.state.params)[::53]))
+    if not (np.isfinite(step_loss).all() and np.isfinite(val)) or skipped or not changed:
+        fail(f"sd epoch: losses {step_loss}, val {val}, skipped {skipped}, "
+             f"changed {changed}/{len(watch)}")
+    if not grid.exists():
+        fail("generate_samples wrote no grid")
+    meta = json.loads(best.with_suffix(".json").read_text())
+    if meta["vae_checkpoint"] != str(vae_checkpoint):
+        fail(f"the SD best names {meta['vae_checkpoint']}, not {vae_checkpoint}")
+    steady = float(np.mean(step_s[1:]))
+    train_mode = trainer.train_mode
+    del trainer, batch
+    release()
+    return {"train_mode": train_mode, "unet_params": n_unet, "text_params": n_text,
+            "trainable_params": trainable, "init_s": init_s, "step_s": step_s,
+            "step_wall_after_first_s": steady, "samples_per_s": SD_BATCH / steady,
+            "step_device_ms": step_device_ms, "epoch_s": epoch_s, "step_loss": step_loss,
+            "train_loss": stats["loss"], "grad_norm": stats["grad_norm"], "val_loss": val,
+            "validate_s": val_s, "generate_samples_s": sample_s, "sample_grid": grid.name,
+            "peak_mem_gb": peak / 1e9, "skipped_batches": skipped,
+            "watched_leaves_changed": f"{changed}/{len(watch)}", "save_best_s": save_s,
+            "checkpoint": str(best), "checkpoint_gb": best.stat().st_size / 1e9,
+            "predicted_per_step": per_step, "launches_by_part": got, "launches": launches}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2557,6 +2787,18 @@ def main(argv=None):
                            "full_width": fast,
                            "full_width_seconds": time.perf_counter() - t_full,
                            "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        sd_kernels = [run_case(c) for c in sd_cases()]
+        bad = [r for r in sd_kernels if not r["ok"]]
+        if bad:
+            fail("kernel disagrees with its plain version at an SD shape: " + "; ".join(
+                f"{r['name']} err {r['max_abs_err']:.3g}" for r in bad))
+        sd_tiny = phase_sd_card_vs_cpu(tmp)
+        t_full = time.perf_counter()
+        sd = phase_sd_full_width(exp, corpus, s1["checkpoint"])
+        emit("sd", {"card": card, "kernels_vs_plain": sd_kernels, "card_vs_cpu": sd_tiny,
+                    "full_width": sd, "full_width_seconds": time.perf_counter() - t_full,
+                    "seconds": time.perf_counter() - t})
 
     by_name = {(r["kernel"], r["name"], r["dtype"]): r for r in results}
     kernels = []
@@ -2565,7 +2807,7 @@ def main(argv=None):
         kernels.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaces, "shape": case, "dtype": "bfloat16",
                         "launches": sum(ph["launches"][kname] for ph in (
-                            serve, paths, s1, full, s3, s0, fast)),
+                            serve, paths, s1, full, s3, s0, fast, sd)),
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -3,7 +3,8 @@
 The port keeps parameters, gradients, optimizer moments and the EMA as plain
 trees in the JAX package's shapes; these helpers walk them in one fixed
 order (dict insertion order, list order) and name each leaf by its path,
-``enc0.1.res.conv1.w``.
+``enc0.1.res.conv1.w``.  A ``None`` subtree (the SD UNet's ``attentions``
+of a level without attention) has no leaves and maps to ``None``.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ def items(tree, prefix: str = "") -> Iterator[Tuple[str, object]]:
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from items(v, f"{prefix}{i}.")
-    else:
+    elif tree is not None:
         yield prefix[:-1], tree
 
 
@@ -29,6 +30,8 @@ def leaves(tree) -> List:
 
 def map(fn: Callable, tree, *rest):
     """``fn`` over corresponding leaves of trees of one structure."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -7,7 +7,8 @@ this package keeps ``[in, out]`` for linear kernels (and the fused attention
 ``bias``, embedding tables and biases carry over unchanged.  Lists (BERT
 ``layers``, UNet ``enc{lvl}``/``dec{lvl}``) stay lists; a flax msgpack
 checkpoint spells them as dicts keyed ``'0'``, ``'1'``, ..., which become
-lists again here.
+lists again here.  A ``None`` subtree (msgpack nil: the SD UNet's
+``attentions`` of a level without attention) stays ``None`` both ways.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ def _leaf(name, a) -> torch.Tensor:
 def from_jax(tree, name: str = ""):
     """Convert a JAX-layout parameter tree (numpy arrays or CPU tensors as
     leaves, lists or ``'0'..'n'``-keyed dicts) to this package's layout."""
+    if tree is None:
+        return None
     if _is_list_dict(tree):
         return [from_jax(tree[str(i)], name) for i in range(len(tree))]
     if isinstance(tree, dict):
@@ -44,6 +47,8 @@ def to_jax(tree, name: str = ""):
     """Inverse of ``from_jax``: conv kernels OIHW -> HWIO, lists as dicts
     keyed ``'0'``, ``'1'``, ... (flax's state-dict form), leaves as detached
     CPU tensors in their own dtype."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: to_jax(v, k) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -57,6 +62,11 @@ def to_jax(tree, name: str = ""):
 def fit(template, tree, path: str = "params"):
     """Check that ``tree`` has ``template``'s structure and leaf shapes and
     return it with the template's dtypes and devices; raise on any mismatch."""
+    if template is None or tree is None:
+        if template is not tree:
+            raise ValueError(f"{path}: expected {type(template).__name__}, "
+                             f"got {type(tree).__name__}")
+        return None
     if isinstance(template, dict):
         if not isinstance(tree, dict) or set(tree) != set(template):
             got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__

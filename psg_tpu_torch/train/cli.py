@@ -13,9 +13,12 @@ the device-resident fast path (``train/fastpath.py``), whose bests are
 light (bf16 sampling params): stage 2 then reads stage 1's light best and
 stage 3 stage 2's.  Stage 0 (MLM pretraining of the text tower,
 ``train/stage0_mlm.py``) is not part of ``all``: its best warm-starts stage
-1 through ``--override extra.text_init=PATH``.  ``--use-diffusers`` (the
-SD-1.5 UNet for stage 2) raises ``NotImplementedError`` naming the ROADMAP
-item that ports it.  Runs on the card unless ``--device cpu``.
+1 through ``--override extra.text_init=PATH``.  ``--use-diffusers`` runs
+stage 2 (alone or in ``all``) on the SD-1.5-family UNet with a trainable
+text encoder (``train/stage2_sd.py``); under ``all`` stage 3 then gets that
+stage's best, as the JAX CLI hands it on, and raises as the JAX package
+does: the SD checkpoint does not fit the stage-3 UNet.  Runs on the card
+unless ``--device cpu``.
 
 Checkpoints follow the reference's paths:
 ``{experiment_dir}/{name}_{vae,diffusion,final}/checkpoints/{stage}_best_model.ckpt``.
@@ -41,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--config", type=str, default="config/train_config.yaml")
     p.add_argument("--stage", type=str, default="all", choices=["0", "1", "2", "3", "all"])
     p.add_argument("--use-diffusers", action="store_true",
-                   help="stage 2 on the SD-1.5-family UNet (not ported)")
+                   help="stage 2 on the SD-1.5-family UNet")
     p.add_argument("--vae-checkpoint", type=str, default=None)
     p.add_argument("--diffusion-checkpoint", type=str, default=None)
     p.add_argument("--experiment-name", type=str, default="pokemon")
@@ -93,10 +96,6 @@ def main(argv=None) -> int:
         print(f"stage 0 complete: {best}")
         print(f"warm-start stage 1 with --override extra.text_init={best}")
         return 0
-    if args.use_diffusers and args.stage in ("2", "all"):
-        raise NotImplementedError("not ported yet: --use-diffusers (the SD-UNet stage 2, "
-                                  "psg_tpu/train/stage2_sd.py): ROADMAP Queue A item 6")
-
     vae_ckpt, diff_ckpt = args.vae_checkpoint, args.diffusion_checkpoint
     if run_all or args.stage == "1":
         from psg_tpu_torch.train.stage1_vae import VAETrainer
@@ -109,10 +108,13 @@ def main(argv=None) -> int:
         del t
 
     if run_all or args.stage == "2":
-        from psg_tpu_torch.train.stage2_diffusion import DiffusionTrainer
+        if args.use_diffusers:
+            from psg_tpu_torch.train.stage2_sd import SDDiffusionTrainer as Trainer
+        else:
+            from psg_tpu_torch.train.stage2_diffusion import DiffusionTrainer as Trainer
 
-        t = DiffusionTrainer(cfg, vae_checkpoint_path=stage_input(vae_ckpt, "vae"),
-                             experiment_name=name, device=args.device)
+        t = Trainer(cfg, vae_checkpoint_path=stage_input(vae_ckpt, "vae"),
+                    experiment_name=name, device=args.device)
         if args.resume and args.stage == "2":
             t.load_checkpoint(args.resume)
         diff_ckpt = str(t.train())

@@ -3,6 +3,7 @@
 the card.
 
     python3 scripts/torch_profile_train.py [--stage 0|1|2|3] [--steps 3] [--trace PATH]
+    python3 scripts/torch_profile_train.py --stage 2 --use-diffusers [--steps 3]
     python3 scripts/torch_profile_train.py --fast-vs-classic [--steps 3]
 
 Builds the trainer of the stage at config/train_config.yaml's full width
@@ -31,7 +32,11 @@ reparameterize, the decode, CLIP's image and text towers and the alignment
 loss, the backward, the optimizer of the text-encoder phase; then, after
 the switch, the joint phase's step and optimizer (text, decoder and UNet).
 Stage 0: the forward to the loss (masking, BERT in bf16, the tied head),
-the backward, the optimizer.
+the backward, the optimizer.  ``--use-diffusers`` (stage 2 on the SD-1.5
+UNet with 768-d cross-attention and BERT-base trained with the 'minimal'
+strategy, ``train/stage2_sd.py``): the text encode, the VAE encode (no
+gradient) with q_sample, the SD UNet, each with autograd recording as in
+the step; the backward (every leaf, frozen ones included); the optimizer.
 
 ``--fast-vs-classic``: config/r3_evidence.yaml (the device-resident fast
 path's recipe: batch 16, EMA 0.9995, bf16 first moment, warmup-cosine) at
@@ -215,6 +220,59 @@ def profile_stage2(cfg, args):
             ema_update(st.ema, st.params, tr.ema_decay)
 
     measure("optimizer + EMA", update, args.steps, setup=lambda: tr._grads(batch)[1])
+    return bs, step, tr.skipped_batches()
+
+
+def profile_sd(cfg, args):
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.models.sd_unet import sd_wrapper_apply
+    from psg_tpu_torch.models.text_encoder import text_encoder_apply
+    from psg_tpu_torch.models.unet import text_bias_from_mask
+    from psg_tpu_torch.models.vae import reparameterize, vae_encoder_apply
+    from psg_tpu_torch.train.stage2_sd import SDDiffusionTrainer
+
+    tr = SDDiffusionTrainer(cfg, None, experiment_name="profile", device="cuda")
+    batch = tr._batch(next(iter(tr.train_loader)))
+    bs = batch["image"].shape[0]
+    p = tr.state.params
+    print(json.dumps({"stage": "2 (--use-diffusers)", "batch": bs, "train_mode": tr.train_mode,
+                      "unet_params": sum(t.numel() for t in tree.leaves(p["sd"])),
+                      "text_params": sum(t.numel() for t in tree.leaves(p["text"]))}),
+          flush=True)
+    tr._step(batch)                        # warm-up: cuDNN and cuBLAS pick kernels
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    leaves = tree.leaves(p)
+    dt = tr.compute_dtype
+
+    step = measure(f"train step (batch {bs})", lambda _: tr._step(batch), args.steps,
+                   trace=args.trace)
+    emb = measure_out("text encode", lambda _: text_encoder_apply(
+        p["text"], batch["desc_ids"], batch["desc_mask"], tr.bert_cfg, dtype=dt), args.steps)
+
+    def encode(_):
+        with torch.no_grad():
+            mu, logvar = vae_encoder_apply(tr.frozen_vae["encoder"], batch["image"], dtype=dt)
+            latent = reparameterize(tr.state.rng, mu, logvar).clamp(
+                -cfg.model.latent_clamp, cfg.model.latent_clamp)
+            t = torch.randint(0, tr.schedule.num_timesteps, (bs,), generator=tr.state.rng,
+                              device="cuda")
+            noise = torch.randn(latent.shape, generator=tr.state.rng, device="cuda")
+            return tr.schedule.add_noise(latent, noise, t), t
+
+    noisy, t = measure_out("VAE encode + q_sample (no gradient)", encode, args.steps)
+    bias = text_bias_from_mask(batch["desc_mask"])
+    measure("SD UNet forward", lambda _: sd_wrapper_apply(
+        p["sd"], noisy.to(emb.dtype), t, emb, tr.spec, text_bias=bias, dtype=dt), args.steps)
+
+    def loss(_):
+        return tr._noise_loss(p, batch, tr.state.rng)
+
+    measure("backward", lambda lo: torch.autograd.grad(lo, leaves, allow_unused=True),
+            args.steps, setup=lambda: loss(None))
+    measure("optimizer (unet + text groups)",
+            lambda g: tr.tx.update(p, g, tr.state.opt_state), args.steps,
+            setup=lambda: tr._grads(batch)[1])
     return bs, step, tr.skipped_batches()
 
 
@@ -435,6 +493,8 @@ def main():
     ap.add_argument("--stage", type=int, default=2, choices=(0, 1, 2, 3))
     ap.add_argument("--steps", type=int, default=3, help="unprofiled runs per part")
     ap.add_argument("--trace", help="write the whole step's chrome trace here")
+    ap.add_argument("--use-diffusers", action="store_true",
+                    help="stage 2 on the SD-1.5 UNet (train/stage2_sd.py)")
     ap.add_argument("--fast-vs-classic", action="store_true",
                     help="the fast and the classic step of stages 1-3 (r3_evidence.yaml)")
     args = ap.parse_args()
@@ -467,8 +527,12 @@ def main():
             fast_vs_classic(cfg, args)
             print(smi, flush=True)
             return
-        bs, step, skipped = {0: profile_stage0, 1: profile_stage1, 2: profile_stage2,
-                             3: profile_stage3}[args.stage](cfg, args)
+        if args.use_diffusers and args.stage != 2:
+            sys.exit("torch_profile_train: --use-diffusers is a stage-2 option")
+        profile_fn = profile_sd if args.use_diffusers else {
+            0: profile_stage0, 1: profile_stage1, 2: profile_stage2,
+            3: profile_stage3}[args.stage]
+        bs, step, skipped = profile_fn(cfg, args)
         print(json.dumps({"card": CARD, "samples_per_s": bs / (step["wall_ms"] / 1e3),
                           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                           "skipped_batches": skipped}), flush=True)

@@ -582,3 +582,93 @@ def test_stage1_gradient_reaches_every_leaf(card, tmp_path):
             assert g.abs().max() > 0, path
         torch.testing.assert_close(g, r, rtol=0, atol=1e-3 * float(r.abs().max()) + 1e-6,
                                    msg=path)
+
+
+# the SD-1.5 UNet's shapes (--use-diffusers stage 2): flash at head dim 40
+# over the 27^2 level, GN+SiLU on the up path's uneven concatenations (30 and
+# 60 channels a group; 27^2 x 960 is over a cluster's 1 MB in bf16)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,lq,lk,d,masked", [
+    (8, 8, 729, 729, 40, False),    # SD 27^2 self-attention
+    (8, 8, 729, 128, 40, True),     # SD 27^2 cross-attention on the text keys
+    (8, 8, 196, 196, 80, False),    # SD 14^2 self-attention
+    (8, 8, 16, 16, 160, False),     # SD mid block
+])
+def test_flash_attention_sd_shapes(card, dtype, b, h, lq, lk, d, masked):
+    test_flash_attention_kernel(card, dtype, b, h, lq, lk, d, masked)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,c", [(8, 729, 960), (8, 196, 960), (8, 196, 1920),
+                                   (8, 49, 1920), (8, 16, 2560)])
+def test_group_norm_silu_sd_shapes(card, dtype, b, s, c):
+    test_group_norm_silu_kernel(card, dtype, b, s, c, 32, 0.3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,c", [(32, 729, 960), (32, 196, 1920)])
+def test_group_norm_silu_sd_gradients(card, dtype, b, s, c):
+    test_group_norm_silu_gradients(card, dtype, b, s, c)
+
+
+def test_sd_wrapper_gradient_reaches_every_trainable_leaf(card):
+    """The tiny SD wrapper (with the text projection) on the card in fp32,
+    through both kernels' Functions: every leaf gets a finite gradient
+    within 1e-3 * max|g| + 1e-6 of the CPU's (plain versions), non-zero
+    wherever the CPU's is."""
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.models.sd_unet import SDUNetSpec, sd_wrapper_apply, sd_wrapper_init
+
+    spec = SDUNetSpec.tiny_test(text_dim=20)
+    params = sd_wrapper_init(torch.Generator().manual_seed(0), spec, 12, latent_dim=8)
+    rng = np.random.RandomState(0)
+    x = torch.from_numpy(rng.randn(2, 27, 27, 8).astype(np.float32))
+    t = torch.tensor([3, 700])
+    text = torch.from_numpy(rng.randn(2, 6, 12).astype(np.float32))
+    bias = torch.tensor([[0.0] * 6, [0.0] * 2 + [-1e9] * 4])[:, None, None, :]
+    w = torch.from_numpy(rng.randn(2, 27, 27, 8).astype(np.float32))
+
+    def grads(dev):
+        p = tree.map(lambda a: a.to(dev).requires_grad_(True), params)
+        out = sd_wrapper_apply(p, x.to(dev), t.to(dev), text.to(dev), spec,
+                               text_bias=bias.to(dev))
+        return [g.cpu() for g in torch.autograd.grad((out * w.to(dev)).sum(), tree.leaves(p))]
+
+    ops.reset_launch_counts()
+    got = grads(card)
+    counts = ops.launch_counts()
+    assert counts["group_norm_silu"] == 45 and counts["flash_attention"] == 32, counts
+    for (path, _), g, r in zip(tree.items(params), got, grads("cpu")):
+        assert torch.isfinite(g).all(), path
+        if float(r.abs().max()) > 1e-6:
+            assert g.abs().max() > 0, path
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-3 * float(r.abs().max()) + 1e-6,
+                                   msg=path)
+
+
+def test_memory_and_timing_utils_on_the_card(card):
+    """``StepTimer`` reads CUDA events; ``step_memory_analysis`` reads the
+    peak-allocated counter (a [B, 1024] fp32 step peaks above its argument);
+    ``find_max_batch_size`` finds the largest batch under a budget."""
+    from psg_tpu_torch.utils.memory import find_max_batch_size, step_memory_analysis
+    from psg_tpu_torch.utils.profiling import StepTimer, device_memory_stats
+
+    timer = StepTimer()
+    a = torch.randn(512, 512, device=card)
+    for _ in range(3):
+        with timer.measure():
+            a = a @ a / 512
+    s = timer.summary()
+    assert timer.cuda and s["n"] == 3 and s["mean_s"] > 0
+
+    def step(x):
+        return (x * 2.0).sum()
+
+    m = step_memory_analysis(step, torch.zeros(64, 1024, device=card))
+    assert m["argument_size_bytes"] == 64 * 1024 * 4 and m["peak_bytes"] >= 64 * 1024 * 4
+    stats = device_memory_stats()
+    assert stats["bytes_limit"] > stats["peak_bytes_in_use"] > 0
+    budget = torch.cuda.memory_allocated() + 40 * 4096 * 4 * 2
+    best = find_max_batch_size(lambda b: (torch.zeros(b, 4096, device=card),), step,
+                               limit=256, hbm_bytes=budget, safety=1.0)
+    assert 1 <= best < 256

@@ -39,7 +39,9 @@ def test_port_modules_are_all_found():
     for name in ("serve.generator", "serve.app", "serve.hub", "data.dataset",
                  "data.synthetic", "eval.metrics", "ops.spatial_xattn", "text.bpe",
                  "models.clip", "train.stage3_final", "train.stage0_mlm",
-                 "train.fastpath", "data.device_augment"):
+                 "train.fastpath", "data.device_augment", "models.sd_unet",
+                 "models.convert", "train.stage2_sd", "train.legacy", "utils.seed",
+                 "utils.profiling", "utils.memory", "utils.attention_viz"):
         assert f"psg_tpu_torch.{name}" in MODULES, name
     assert len(MODULES) >= 40
 
@@ -76,7 +78,7 @@ def test_importing_the_port_loads_no_jax_and_no_psg_tpu():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", *(
+@pytest.mark.parametrize("path", ["chip_smoke.py", "scripts/torch_import_reference_checkpoint.py", *(
     str(p.relative_to(ROOT)) for p in sorted(PORT.rglob("*.py")))])
 def test_no_jax_or_psg_tpu_import_in_source(path):
     roots = _imported_roots(ROOT / path)

@@ -70,9 +70,30 @@ def test_train_stage2_then_serve(tmp_path, offline, capsys):
     (["--stage", "2", "--use-diffusers"], "use-diffusers"),
     (["--stage", "all", "--use-diffusers"], "use-diffusers"),
 ])
-def test_unported_stages_raise(argv, match, tmp_path):
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(argv + ["--config", str(tmp_path / "none.yaml"), "--device", "cpu"])
+def test_unported_stages_raise(argv, match, tmp_path, offline, capsys, caplog):
+    """``--use-diffusers`` is ported: stage 2 runs the SD trainer (its log
+    names the flag) and writes its best under ``{name}_diffusers``.  Under
+    ``all`` stage 1 runs first and the SD stage reads its best; stage 3
+    then gets the SD best, as the JAX CLI hands it on, and raises as the
+    JAX package does: the SD checkpoint does not fit the stage-3 UNet."""
+    corpus = write_sprite_corpus(tmp_path / "corpus", n=7, seed=1, size=64)
+    args = argv + _train_args(tmp_path, corpus, "model.num_timesteps=50")
+    with caplog.at_level(logging.INFO):
+        if argv[1] == "all":
+            with pytest.raises(ValueError, match="expected keys"):
+                cli.main(args)
+        else:
+            assert cli.main(args) == 0
+    assert match in caplog.text
+    exp = tmp_path / "exp"
+    best = exp / "cli_diffusers" / "checkpoints" / "diffusers_best_model.ckpt"
+    meta = json.loads(best.with_suffix(".json").read_text())
+    assert (meta["stage"], meta["step"], meta["epoch"]) == ("diffusers", 2, 0)
+    out = capsys.readouterr().out
+    assert "stage 2 complete" in out and "stage 3 complete" not in out
+    if argv[1] == "all":
+        vae = exp / "cli_vae" / "checkpoints" / "vae_best_model.ckpt"
+        assert meta["vae_checkpoint"] == str(vae) and f"loaded VAE+text from {vae}" in caplog.text
 
 
 def _train_args(tmp_path, corpus, *extra):

@@ -143,6 +143,18 @@ prints one JSON line per phase:
                 time, peak memory, the checkpoint's bytes and seconds, the
                 parameter counts, and launches against
                 ``predicted_sd_launches``.
+12. ``scale_out``  ``psg_tpu_torch/parallel`` on a one-rank NCCL group
+                (NCCL refuses two ranks on one card): (a) the group and a
+                (1, 1) mesh; (b) the full-width stage-2 epoch (3 steps,
+                validate, one full best write) on the mesh against the same
+                epoch without one, to phase 6b's bounds (params judged
+                where every step's gradient is determined, and no farther
+                from the run without a mesh than a second such run is),
+                and one profiled step whose NCCL all-reduce covers the
+                gradient's 2.62 GB; (c) generate_batch on the mesh against
+                phase 4's images; (d) ``graft_entry.entry()``, the
+                full-width UNet forward at batch 4.  Step walls, the
+                all-reduce's device ms, launches against the prediction.
 Phase 6c runs after phase 7: its frozen VAE and text encoder come from
 phase 7's checkpoint, and serving resolves the pair.
 In phases 4-9 images must be finite and of the right shape, a seed must
@@ -154,7 +166,7 @@ Phase 2 holds GroupNorm+SiLU at the decoder's and the UNet's sites and, at
 batch 1 and 4, at the VAE encoder's (107^2x32 with one channel a group,
 53^2x64, 27^2x128).  Then the card's name and power limit, the ``kernels``
 line (each kernel at its heaviest main-path shape, with its launches summed
-over phases 4-11, and the spatial kernel's gradient: its Function's forward
+over phases 4-12, and the spatial kernel's gradient: its Function's forward
 and backward at phase 7a's main case, launched in phase 7c's steps), and last
 ``{"ok": true, "device": {...}}``.  ``--json PATH`` also writes every
 phase's record to PATH.
@@ -2641,6 +2653,270 @@ def phase_sd_full_width(exp, corpus, vae_checkpoint):
             "predicted_per_step": per_step, "launches_by_part": got, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: scale-out (the port's parallel/, mesh= on the trainer and the
+# generator, graft_entry)
+# ---------------------------------------------------------------------------
+
+
+def _nccl_profile(step):
+    """One ``step()`` under torch.profiler: {NCCL kernel: summed device ms}
+    and {all-reduce op: the bytes of its recorded inputs}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        step()
+        torch.cuda.synchronize()
+    kernels, calls = {}, {}
+    for evt in prof.events():
+        name = evt.name.lower()
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            # kernels only: the profiler lists the "nccl:all_reduce" range too
+            if ("nccl" in name or "onerankreduce" in name) and not name.startswith("nccl:"):
+                kernels[evt.name] = kernels.get(evt.name, 0.0) + evt.device_time_total / 1e3
+        elif "allreduce" in name.replace("_", "") and evt.input_shapes:
+            shapes = [s for s in evt.input_shapes if s and not isinstance(s[0], list)]
+            shapes += [t for s in evt.input_shapes if s and isinstance(s[0], list) for t in s]
+            calls[evt.name] = calls.get(evt.name, 0) + 4 * sum(math.prod(t) for t in shapes)
+    return kernels, calls
+
+
+def phase_scale_out(exp, corpus, vae_checkpoint, sprites):
+    """(a) A one-rank NCCL group and a (1, 1) mesh.  (b) The full-width
+    stage-2 trainer on the mesh against one without, from the same start
+    (seed, phase 7's stage-1 checkpoint, the 128 sprites): train_epoch (3
+    steps), validate, one best write.  Phase 6b's bounds: losses rel 1e-4,
+    the first step's gradients 1e-3 max|g| + 1e-6 a leaf, params, moments
+    and the checkpoint read back within 1e-4 where every step's gradient
+    is determined; and their L2 distance from the run without a mesh at
+    most twice that of a second run without one (the bf16 step is not
+    bit-reproducible on the card).  One profiled step must run an NCCL
+    all-reduce over the gradient's bytes.  (c) generate_batch on the mesh
+    (batch 4, DDIM 20, CFG) against phase 4's images, MAE <= 1e-6.  (d)
+    graft_entry.entry().  Counts are set to 0 before the mesh trainer's
+    epoch and read after entry()."""
+    import socket
+    import torch.distributed as dist
+
+    from psg_tpu_torch import ops
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.core.checkpoint import read_checkpoint
+    from psg_tpu_torch.core.config import load_config
+    from psg_tpu_torch.graft_entry import entry
+    from psg_tpu_torch.models import bridge
+    from psg_tpu_torch.models.unet import UNetSpec
+    from psg_tpu_torch.parallel import initialize_distributed, make_mesh
+    from psg_tpu_torch.serve.generator import PokemonGenerator
+    from psg_tpu_torch.text.tokenizer import WordPieceTokenizer
+    from psg_tpu_torch.train.stage2_diffusion import DiffusionTrainer
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    if not initialize_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda", timeout_s=300):
+        fail("initialize_distributed started no group")
+    mesh = make_mesh(data=1, model=1)
+    group_s = time.perf_counter() - t0
+    if dist.get_backend() != "nccl":
+        fail(f"the one-rank group runs {dist.get_backend()}, not nccl")
+    try:
+        cfg = load_config(CONFIG, [f"experiment_dir={exp}", f"data.csv_path={corpus[0]}",
+                                   f"data.image_dir={corpus[1]}", "training.save_every=1000"])
+
+        def run(name, mesh_, on_grads):
+            """train_epoch and validate, each step's wall and loss kept and
+            its gradient handed to ``on_grads(step, {path: grad})``."""
+            trainer = DiffusionTrainer(cfg, vae_checkpoint, experiment_name=name,
+                                       device="cuda", mesh=mesh_)
+            step_s, losses, orig, orig_grads = [], [], trainer._step, trainer._grads
+
+            def grads_seen(batch, draws=None):
+                out = orig_grads(batch, draws)
+                on_grads(len(losses), dict(tree.items(out[1])))
+                return out
+
+            def timed(batch, draws=None):
+                t = time.perf_counter()
+                parts = orig(batch, draws)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t)
+                losses.append(float(parts["loss"]))
+                return parts
+
+            trainer._grads, trainer._step = grads_seen, timed
+            stats = trainer.train_epoch(0)
+            val = trainer.validate(0)
+            del trainer._grads, trainer._step
+            return trainer, step_s, losses, stats, val, orig
+
+        # the reference's gradients, and where every step's is determined: |g|
+        # at least 100x the card bound, so Adam's step does not hang on the
+        # order of cuDNN's and the bilinear backward's atomic sums
+        ref_grads, determined = [], {}
+
+        def keep_ref(step, grads):
+            ref_grads.append({k: g.detach().clone() for k, g in grads.items()})
+            for k, g in grads.items():
+                a = g.detach().abs()
+                det = a >= 100 * (TRAIN_GRAD_RTOL * a.max() + 1e-6)
+                determined[k] = det if k not in determined else determined[k] & det
+
+        ref, ref_step_s, ref_losses, _, ref_val, _ = run("scale_ref", None, keep_ref)
+        want = {k: dict(tree.items(getattr(ref.state, k))) for k in ("params", "ema")
+                if getattr(ref.state, k) is not None}
+        want = {k: {p: t.detach().clone() for p, t in v.items()} for k, v in want.items()}
+        want["mu"] = {p: m.clone() for p, m in ref.state.opt_state["groups"]["unet"]["mu"].items()}
+        per_step = predicted_train_launches(ref)
+        del ref
+        release()
+
+        def l2(got, ref_tree):
+            """The L2 distance of a tree from ``ref_tree`` (fp64 sum)."""
+            return math.sqrt(sum(float((got[k].detach().double() - r.double()).square().sum())
+                                 for k, r in ref_tree.items()))
+
+        # the floor: a second run without a mesh lands this far from the first
+        # (the card's bf16 step is not bit-reproducible, and Adam moves a
+        # noise-gradient element by up to lr); the mesh must land no farther
+        again, *_ = run("scale_ref_again", None, lambda step, grads: None)
+        floor = {"params": l2(dict(tree.items(again.state.params)), want["params"]),
+                 "mu": l2(again.state.opt_state["groups"]["unet"]["mu"], want["mu"])}
+        del again
+        release()
+
+        # each step's worst leaf, max|dg| / (1e-3 max|g| + 1e-6); phase 6b's bound
+        # holds the first step's (later steps start from params that Adam moved
+        # apart by up to lr where the gradient was noise)
+        grad_ratio = []
+
+        def check_grads(step, grads):
+            grad_ratio.append(max(
+                float((g.float() - ref_grads[step][k]).abs().max())
+                / (TRAIN_GRAD_RTOL * float(ref_grads[step][k].abs().max()) + 1e-6)
+                for k, g in grads.items()))
+
+        ops.reset_launch_counts()          # this path's counted run starts here
+        trainer, step_s, losses, stats, val, orig_step = run("scale_mesh", mesh, check_grads)
+        del ref_grads
+        t = time.perf_counter()
+        if not trainer.save_checkpoint(0, val):
+            fail("the mesh trainer wrote no best checkpoint")
+        save_s = time.perf_counter() - t
+
+        def err(got, ref_tree):
+            """(max abs error where determined, max abs error anywhere)."""
+            d = [(float((got[k].detach().float() - r.float())[determined[k]].abs().max())
+                  if determined[k].any() else 0.0,
+                  float((got[k].detach().float() - r.float()).abs().max()))
+                 for k, r in ref_tree.items()]
+            return max(a for a, _ in d), max(b for _, b in d)
+
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        val_err = abs(val - ref_val) / abs(ref_val)
+        errs, anywhere, dist_ = {}, {}, {}
+        for k in want:
+            got = (dict(tree.items(getattr(trainer.state, k))) if k != "mu"
+                   else trainer.state.opt_state["groups"]["unet"]["mu"])
+            errs[k], anywhere[k] = err(got, want[k])
+            dist_[k] = l2(got, want[k])
+        t = time.perf_counter()
+        raw = read_checkpoint(trainer.ckpt.best_path)
+        read_s = time.perf_counter() - t
+        saved = {p: x.to("cuda") for p, x in tree.items(bridge.from_jax(raw["params"]))}
+        errs["checkpoint_params"], anywhere["checkpoint_params"] = err(saved, want["params"])
+        dist_["checkpoint_params"] = l2(saved, want["params"])
+        judged = (sum(int(m.sum()) for m in determined.values())
+                  / sum(m.numel() for m in determined.values()))
+        if int(raw["step"]) != FULL_STEPS:
+            fail(f"the mesh checkpoint holds step {int(raw['step'])}, not {FULL_STEPS}")
+        del raw, saved, want, determined
+        floor["checkpoint_params"] = floor["params"]
+        if not (loss_err <= TRAIN_LOSS_RTOL and val_err <= TRAIN_LOSS_RTOL
+                and grad_ratio[0] <= 1.0 and max(errs.values()) <= TRAIN_PARAM_ATOL
+                and all(dist_[k] <= 2.0 * floor[k] + 1e-6 for k in dist_)):
+            fail(f"stage 2 on the mesh against no mesh: losses rel {loss_err:.3g}, val rel "
+                 f"{val_err:.3g}, first step's gradients {grad_ratio[0]:.3g} of their bound, "
+                 f"{errs} where determined (bounds {TRAIN_LOSS_RTOL}, {TRAIN_PARAM_ATOL}), "
+                 f"L2 distances {dist_} against twice the no-mesh runs' {floor}")
+
+        batch = trainer._batch(next(iter(trainer.train_loader)))
+        grad_bytes = sum(p.numel() * 4 for p in tree.leaves(trainer.state.params))
+        nccl, call_bytes = _nccl_profile(lambda: orig_step(batch))
+        train_launches = ops.launch_counts()    # 3 steps, validation, the profiled step
+        want_train = {k: (FULL_STEPS + len(trainer.val_loader) + 1) * v
+                      for k, v in per_step.items()}
+        if train_launches != want_train:
+            fail(f"mesh train_epoch + validate + a step: launches {train_launches} "
+                 f"!= {want_train}")
+        reducer = trainer.mesh_run.reducer
+        if not nccl:
+            fail("the profiled mesh step ran no NCCL kernel")
+        if reducer.bucket_bytes_total != grad_bytes:
+            fail(f"the all-reduce buckets hold {reducer.bucket_bytes_total} bytes, "
+                 f"the gradient {grad_bytes}")
+        del trainer, batch
+        release()
+
+        gen_cfg = full_width_config(corpus)
+        gen = PokemonGenerator(gen_cfg, tokenizer=WordPieceTokenizer.from_vocab_file(VOCAB),
+                               sampler="dpmpp", guidance_scale=2.0, negative=NEGATIVE,
+                               device="cuda", mesh=mesh)
+        t = time.perf_counter()
+        imgs = gen.generate_batch(PROMPTS, 20, seed=0, sampler="ddim")
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t
+        gen_mae = float(np.abs(imgs - sprites).mean())
+        # the request's prompts and, at construction, the negative prompt
+        want_gen = predicted_launches(gen, 20, text_encodes=2)
+        del gen
+        release()
+        if imgs.shape != sprites.shape or not gen_mae <= 1e-6:
+            fail(f"generate_batch on the mesh against phase 4: MAE {gen_mae:.3g} > 1e-6")
+
+        t = time.perf_counter()
+        out = entry()
+        torch.cuda.synchronize()
+        entry_s = time.perf_counter() - t
+        if tuple(out.shape) != (4, 27, 27, 8) or not bool(torch.isfinite(out).all()):
+            fail(f"graft_entry.entry(): {tuple(out.shape)}, finite "
+                 f"{bool(torch.isfinite(out).all())}")
+        del out
+        release()
+        launches = ops.launch_counts()     # ... and ends here
+        spec = UNetSpec(text_dim=768, num_heads=4)
+        entry_want = {"group_norm_silu": 2 * (2 * len(spec.channels) * spec.blocks_per_level
+                                              + 1) + 1,
+                      "flash_attention": 2 * (2 * spec.blocks_per_level
+                                              * sum(spec.attention_levels) + 1),
+                      "spatial_xattn": 0}
+        total_want = {k: want_train[k] + want_gen[k] + entry_want[k] for k in want_train}
+        if launches != total_want:
+            fail(f"phase 12 launches {launches} != predicted {total_want}")
+    finally:
+        dist.destroy_process_group()
+    steady = float(np.mean(step_s[1:]))
+    return {"group_s": group_s, "mesh": {"data": 1, "model": 1}, "backend": "nccl",
+            "step_s": step_s, "ref_step_s": ref_step_s,
+            "step_wall_after_first_s": steady, "ref_step_wall_after_first_s":
+            float(np.mean(ref_step_s[1:])), "samples_per_s": 32 / steady,
+            "step_loss": losses, "ref_step_loss": ref_losses, "val_loss": val,
+            "ref_val_loss": ref_val, "loss_max_rel_err": loss_err, "val_rel_err": val_err,
+            "grad_err_of_bound": grad_ratio, "max_abs_err_determined": errs,
+            "max_abs_err_anywhere": anywhere, "determined_share": judged,
+            "l2_from_reference": dist_, "l2_between_two_references": floor,
+            "params_atol": TRAIN_PARAM_ATOL, "save_best_s": save_s,
+            "read_best_s": read_s, "nccl_kernels_ms": nccl,
+            "allreduce_ms": sum(nccl.values()), "allreduce_call_bytes": call_bytes,
+            "train_launches": train_launches,
+            "grad_bytes": grad_bytes, "buckets": len(reducer._buckets),
+            "generate_batch_s": gen_s, "generate_batch_mae_vs_phase4": gen_mae,
+            "entry_s": entry_s, "predicted_per_step": per_step, "launches": launches,
+            "predicted_launches": total_want}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2799,6 +3075,9 @@ def main(argv=None):
         emit("sd", {"card": card, "kernels_vs_plain": sd_kernels, "card_vs_cpu": sd_tiny,
                     "full_width": sd, "full_width_seconds": time.perf_counter() - t_full,
                     "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        scale = phase_scale_out(exp, corpus, s1["checkpoint"], sprites)
+        emit("scale_out", {"card": card, **scale, "seconds": time.perf_counter() - t})
 
     by_name = {(r["kernel"], r["name"], r["dtype"]): r for r in results}
     kernels = []
@@ -2807,7 +3086,7 @@ def main(argv=None):
         kernels.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaces, "shape": case, "dtype": "bfloat16",
                         "launches": sum(ph["launches"][kname] for ph in (
-                            serve, paths, s1, full, s3, s0, fast, sd)),
+                            serve, paths, s1, full, s3, s0, fast, sd, scale)),
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

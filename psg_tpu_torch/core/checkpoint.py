@@ -189,14 +189,22 @@ class CheckpointManager:
     """Best-model checkpoint and keep-last-N periodic rotation for one
     training stage, at ``{dir}/{stage}_best_model.ckpt`` and
     ``{dir}/{stage}_step_NNNNNNNN.ckpt``.  ``save`` takes a state with a
-    ``to_checkpoint()`` method (``train.state.TrainState``)."""
+    ``to_checkpoint()`` method (``train.state.TrainState``).
 
-    def __init__(self, directory, stage: str, keep: int = 5):
+    On a mesh every rank keeps the same books and calls ``save`` (a sharded
+    state's ``to_checkpoint`` is a collective); only the ``writer`` rank
+    writes, and ``sync`` (a barrier) follows every write, so no rank reads
+    a file before it is whole."""
+
+    def __init__(self, directory, stage: str, keep: int = 5, *, writer: bool = True,
+                 sync=None):
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.stage = stage
         self.keep = keep
         self.best_metric = float("inf")
+        self.writer = writer
+        self.sync = sync
 
     @property
     def best_path(self) -> Path:
@@ -226,18 +234,24 @@ class CheckpointManager:
         is_best = metric is not None and metric < self.best_metric
         if not (periodic or is_best):
             return False
-        tree = state.to_checkpoint()
-        if periodic:
-            new_path = self.dir / f"{self.stage}_step_{step:08d}.ckpt"
-            existing = [p for p in self._periodic() if p != new_path]
-            victims = [*existing, new_path][:-self.keep]
-            save_state(new_path, tree, meta)
-            for old in victims:
-                old.unlink(missing_ok=True)
-                old.with_suffix(".json").unlink(missing_ok=True)
+        if not self.writer and getattr(state, "layout", None) is not None:
+            state.layout.unplace(state)     # the gathers of to_checkpoint every rank joins
         if is_best:
             self.best_metric = float(metric)
-            save_state(self.best_path, tree, meta)
+        if self.writer:
+            tree = state.to_checkpoint()
+            if periodic:
+                new_path = self.dir / f"{self.stage}_step_{step:08d}.ckpt"
+                existing = [p for p in self._periodic() if p != new_path]
+                victims = [*existing, new_path][:-self.keep]
+                save_state(new_path, tree, meta)
+                for old in victims:
+                    old.unlink(missing_ok=True)
+                    old.with_suffix(".json").unlink(missing_ok=True)
+            if is_best:
+                save_state(self.best_path, tree, meta)
+        if self.sync is not None:
+            self.sync()
         return is_best
 
     def save_best_light(self, sample_params, step: int, metric: float,
@@ -246,6 +260,8 @@ class CheckpointManager:
         (what serving and the next stage read); returns True if written."""
         if metric >= self.best_metric:
             return False
+        if not self.writer:
+            raise RuntimeError("a light best is written by a single process only")
         self.best_metric = float(metric)
         meta = {**self._meta(step, metric, None), "light": True, **(extra_meta or {})}
         light = tree_util.map(

@@ -14,8 +14,14 @@ from pathlib import Path
 from typing import Dict
 
 
-def setup_logging(log_dir, stage: str) -> logging.Logger:
-    """Per-stage file + console logging."""
+def setup_logging(log_dir, stage: str, *, writer: bool = True) -> logging.Logger:
+    """Per-stage file + console logging; on a rank that is not the mesh's
+    writer, a logger that drops everything below a warning and writes no
+    file."""
+    if not writer:
+        logger = logging.getLogger(f"psg_tpu_torch.{stage}.quiet")
+        logger.setLevel(logging.WARNING)
+        return logger
     log_dir = Path(log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)
     logger = logging.getLogger(f"psg_tpu_torch.{stage}")
@@ -31,7 +37,13 @@ def setup_logging(log_dir, stage: str) -> logging.Logger:
 
 
 class MetricsWriter:
-    def __init__(self, log_dir, use_tensorboard: bool = True):
+    def __init__(self, log_dir, use_tensorboard: bool = True, *, enabled: bool = True):
+        """``enabled=False`` (a rank that is not the mesh's writer): records
+        nothing."""
+        self.enabled = enabled
+        self._f = self._tb = None
+        if not enabled:
+            return
         self.dir = Path(log_dir)
         self.dir.mkdir(parents=True, exist_ok=True)
         self._f = open(self.dir / "metrics.jsonl", "a")
@@ -45,6 +57,8 @@ class MetricsWriter:
                 self._tb = None
 
     def scalar(self, tag: str, value, step: int) -> None:
+        if not self.enabled:
+            return
         rec = {"tag": tag, "value": float(value), "step": int(step),
                "time": time.time()}
         self._f.write(json.dumps(rec) + "\n")
@@ -56,11 +70,15 @@ class MetricsWriter:
             self.scalar(prefix + k, v, step)
 
     def flush(self) -> None:
+        if not self.enabled:
+            return
         self._f.flush()
         if self._tb is not None:
             self._tb.flush()
 
     def close(self) -> None:
+        if not self.enabled:
+            return
         self.flush()
         self._f.close()
         if self._tb is not None:

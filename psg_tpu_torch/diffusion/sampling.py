@@ -31,6 +31,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from psg_tpu_torch.core import draws
 from psg_tpu_torch.diffusion.schedule import DiffusionSchedule, linspace_f32
 
 _F32 = np.float32
@@ -39,7 +40,7 @@ _F32 = np.float32
 def _init_latent(generator, shape, initial_latent):
     if initial_latent is not None:
         return initial_latent.float()
-    return torch.randn(shape, generator=generator, device=generator.device)
+    return draws.randn(generator, shape)
 
 
 def _t_batch(t: int, b: int, device):
@@ -49,7 +50,7 @@ def _t_batch(t: int, b: int, device):
 def _step_noise(noises, i, x, generator):
     if noises is not None:
         return noises[i].to(x.device).float()
-    return torch.randn(x.shape, generator=generator, device=x.device)
+    return draws.randn(generator, x.shape, device=x.device)
 
 
 def ddim_timesteps(num_timesteps: int, steps: int) -> np.ndarray:

@@ -33,6 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from psg_tpu_torch import ops
+from psg_tpu_torch.core import draws
 from psg_tpu_torch.nn.attention import dropout as apply_dropout
 from psg_tpu_torch.nn.attention import mha, mha_init
 from psg_tpu_torch.nn.embeddings import sinusoidal_time_embedding
@@ -145,7 +146,7 @@ def attnblock_apply(params, x, text_seq, spec: UNetSpec, *, channels: int,
     g = largest_group_count(channels)
     seq = x.reshape(b, h * w, c)
     rate = spec.attn_dropout if dropout is not None else 0.0
-    keeps = (dropout,) * 3 if isinstance(dropout, torch.Generator) or dropout is None \
+    keeps = (dropout,) * 3 if draws.is_source(dropout) or dropout is None \
         else dropout
 
     xn = group_norm(params["norm1"], seq, g, eps=1e-6)
@@ -257,7 +258,7 @@ def unet_apply(params, noisy_latent, timesteps, text_seq, spec: UNetSpec, *,
     block (see the module note)."""
     nlvl = len(spec.channels)
     ch = spec.channels
-    if dropout is None or isinstance(dropout, torch.Generator):
+    if dropout is None or draws.is_source(dropout):
         drops = iter([dropout] * unet_block_count(spec))
     else:
         if len(dropout) != unet_block_count(spec):

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from psg_tpu_torch import ops
+from psg_tpu_torch.core import draws
 from psg_tpu_torch.nn.attention import (
     spatial_cross_attention,
     spatial_cross_attention_init,
@@ -124,7 +125,7 @@ def reparameterize(generator, mu, logvar, *, noise=None):
     device), unless ``noise`` (mu's shape) gives it."""
     std = torch.exp(0.5 * logvar.float())
     if noise is None:
-        noise = torch.randn(mu.shape, generator=generator, device=mu.device)
+        noise = draws.randn(generator, mu.shape, device=mu.device)
     return (mu.float() + noise.float() * std).to(mu.dtype)
 
 
@@ -203,9 +204,8 @@ def vae_apply(params, generator, images, text_emb, mode: str = "train", *,
     drawn from ``generator`` unless ``noise`` gives it."""
     if mode == "sample" or images is None:
         b = text_emb.shape[0]
-        latent = noise if noise is not None else torch.randn(
-            (b, latent_size, latent_size, latent_dim), generator=generator,
-            device=text_emb.device)
+        latent = noise if noise is not None else draws.randn(
+            generator, (b, latent_size, latent_size, latent_dim), device=text_emb.device)
         mu = logvar = None
     else:
         mu, logvar = vae_encoder_apply(params["encoder"], images, dtype=dtype)

@@ -25,6 +25,7 @@ from typing import Optional
 import torch
 
 from psg_tpu_torch import ops
+from psg_tpu_torch.core import draws
 from psg_tpu_torch.nn import init as wi
 from psg_tpu_torch.nn.layers import (
     conv2d,
@@ -57,8 +58,8 @@ def dropout(x, rate: float, keep):
     0 leaves x as it is."""
     if keep is None or rate <= 0.0:
         return x
-    if isinstance(keep, torch.Generator):
-        keep = torch.rand(x.shape, generator=keep, device=x.device) < 1.0 - rate
+    if draws.is_source(keep):
+        keep = draws.rand(keep, x.shape, device=x.device) < 1.0 - rate
     return torch.where(keep.to(x.device), x / (1.0 - rate), 0.0).to(x.dtype)
 
 

@@ -26,7 +26,16 @@ per request.  The internal functions (``_encode_impl``, ``_img2img``,
 themselves, which is how the tests inject the reference's ``jax.random``
 draws.  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; without a GPU and without an explicit ``"cpu"``,
-construction raises.  Sharding a batch over several cards is not ported.
+construction raises.
+
+On a mesh (``mesh=``, ``parallel/``) the UNet's wide kernels are cut by
+``unet_tp_rules`` over 'model' (at ``extra.tp_min_channels``, 640 by
+default; VAE and text encoder whole on every rank) and gathered whole for
+each request.  ``generate_batch`` pads the batch to a multiple of 'data',
+each rank runs its rows with the request's draws made at the global shape
+(``core/draws.py``), and an all-gather returns the whole batch on every
+rank; the images equal the single-process ones.  The other public methods
+run every row on every rank.
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ import numpy as np
 import torch
 from PIL import Image
 
+from psg_tpu_torch.core import draws as draws_
 from psg_tpu_torch.core.checkpoint import load_serving_params
 from psg_tpu_torch.core.config import Config, configure_torch
 from psg_tpu_torch.diffusion.sampling import (
@@ -180,11 +190,13 @@ class PokemonGenerator:
                  tokenizer=None, schedule_kind: str = "linear",
                  sampler: str = "ddim", guidance_scale: float = 0.0,
                  negative: str = "zero", retrieval_mode: str = "hybrid",
-                 prediction_type: str = "eps", *, device=None, params=None):
+                 prediction_type: str = "eps", *, device=None, params=None, mesh=None):
         """``params``: a parameter tree in this package's layout (e.g. from
         ``models.bridge.from_jax``) used instead of checkpoints; without
-        either, parameters are drawn from ``cfg.seed``."""
+        either, parameters are drawn from ``cfg.seed``.  ``mesh``: a
+        ('data', 'model') ``DeviceMesh`` this rank serves on."""
         self.device = resolve_device(device)
+        self.mesh_run = None
         if self.device.type == "cuda":
             configure_torch(cfg)
         self.cfg = cfg
@@ -226,6 +238,12 @@ class PokemonGenerator:
                 vae_checkpoint, diffusion_checkpoint, template)
         # matmul/conv kernels stored in the compute dtype (outputs unchanged)
         self.params = prepare_weights(self.params, self.compute_dtype)
+        if mesh is not None:
+            from psg_tpu_torch.train.common import MeshRun
+
+            self.mesh_run = MeshRun(mesh, self.params["unet"], tp_min_channels=int(
+                (cfg.extra or {}).get("tp_min_channels", 640)))
+            self.params["unet"] = self.mesh_run.layout.shard(self.params["unet"])
 
         # CFG negative branch: "zero" is the cond-dropout zero embedding,
         # "mean" the mean dataset-caption embedding (an in-distribution
@@ -372,29 +390,32 @@ class PokemonGenerator:
         return guided
 
     def _img2img(self, images, ids, mask, generator, *, steps: int, num: int,
-                 sampler: str, strength: float, draws=None):
+                 sampler: str, strength: float, draws=None, params=None):
         """Encode ``images``, lerp the latent toward noise at ``strength``
         (none at 0), run the chain from it.  ``draws``: (encoder noise, lerp
         noise) replacing the two draws."""
+        params = params if params is not None else self.params
         enc_noise, lerp_noise = draws if draws is not None else (None, None)
-        latent = self._encode_impl(self.params, generator, images, noise=enc_noise)
+        latent = self._encode_impl(params, generator, images, noise=enc_noise)
         if strength > 0:
             if lerp_noise is None:   # drawn in the latent's dtype (bf16 at full width)
-                lerp_noise = torch.randn(latent.shape, generator=generator,
-                                         device=latent.device, dtype=latent.dtype)
+                lerp_noise = draws_.randn(generator, latent.shape, device=latent.device,
+                                         dtype=latent.dtype)
             latent = lerp_to_noise(latent, lerp_noise, strength)
-        return self._generate_impl(self.params, generator, ids, mask, latent,
+        return self._generate_impl(params, generator, ids, mask, latent,
                                    steps=steps, num=num, sampler=sampler)
 
     def _restart_passes(self, imgs, ids, mask, generator, *, steps: int, num: int,
-                        sampler: str, restarts: int, strength: float, draws=None):
+                        sampler: str, restarts: int, strength: float, draws=None,
+                        params=None):
         """Restart sampling (cf. Xu et al. 2023): re-encode the draft, mix hard
         with fresh noise, resample; ``restarts`` times.  ``draws[i]`` replaces
         pass i's draws (see ``_img2img``)."""
         for i in range(restarts):
             imgs = self._img2img(imgs, ids, mask, generator, steps=steps, num=num,
                                  sampler=sampler, strength=strength,
-                                 draws=draws[i] if draws is not None else None)
+                                 draws=draws[i] if draws is not None else None,
+                                 params=params)
         return imgs
 
     def _serve(self, ids, mask, generator, *, steps: int, num: int, sampler: str,
@@ -403,20 +424,24 @@ class PokemonGenerator:
         """One request: the chain from the prior, or from ``init_images``
         [N, H, W, 3] (image+text, retrieval seeding), then the restart passes.
         ``draws`` (tests): {"prior": initial latent, "init": (encoder noise,
-        lerp noise), "restarts": [(encoder noise, lerp noise), ...]}."""
+        lerp noise), "restarts": [(encoder noise, lerp noise), ...]}.  On a
+        mesh the UNet is gathered whole for the request."""
         draws = draws or {}
+        params = self.params
+        if self.mesh_run is not None:
+            params = dict(params, unet=self.mesh_run.gather(params["unet"]))
         if init_images is not None:
             imgs = self._img2img(init_images, ids, mask, generator, steps=steps,
                                  num=num, sampler=sampler, strength=init_strength,
-                                 draws=draws.get("init"))
+                                 draws=draws.get("init"), params=params)
         else:
-            imgs = self._generate_impl(self.params, generator, ids, mask,
+            imgs = self._generate_impl(params, generator, ids, mask,
                                        draws.get("prior"), steps=steps, num=num,
                                        sampler=sampler)
         return self._restart_passes(imgs, ids, mask, generator, steps=steps, num=num,
                                     sampler=sampler, restarts=restarts,
                                     strength=restart_strength,
-                                    draws=draws.get("restarts"))
+                                    draws=draws.get("restarts"), params=params)
 
     # -- retrieval -------------------------------------------------------------
 
@@ -484,6 +509,8 @@ class PokemonGenerator:
     def _generator(self, seed: Optional[int]) -> torch.Generator:
         if seed is None:
             seed = int(np.random.randint(0, 2**31 - 1))
+            if self.mesh_run is not None:    # every rank draws rank 0's seed
+                seed = int(self.mesh_run.broadcast(torch.tensor(seed, device=self.device)))
         return torch.Generator(device=self.device).manual_seed(int(seed))
 
     def generate_from_text(self, description: str, num_inference_steps: int = 50,
@@ -532,14 +559,23 @@ class PokemonGenerator:
                        init_strength: float = 0.85) -> np.ndarray:
         """N descriptions -> [N, H, W, 3] float32 in [-1, 1].  ``init``:
         'prior', or 'retrieval' to seed every chain from its prompt's nearest
-        dataset sprite at ``init_strength``."""
+        dataset sprite at ``init_strength``.  On a mesh each rank runs its
+        rows of the batch padded to a multiple of 'data', and every rank
+        returns the whole batch."""
         if init not in ("prior", "retrieval"):
             raise ValueError(f"unknown init {init!r}")
         init_images = (self._retrieval_images(descriptions) if init == "retrieval"
                        else None)
         ids, mask = self._encode_ids(descriptions)
-        imgs = self._serve(ids, mask, self._generator(seed), steps=num_inference_steps,
-                           num=len(descriptions), sampler=sampler or self.sampler_name,
+        n, gen, mr = len(descriptions), self._generator(seed), self.mesh_run
+        if mr is not None:
+            inits = [] if init_images is None else [init_images]
+            gen, (ids, mask, *inits) = mr.split_rows(gen, n, ids, mask, *inits)
+            init_images = inits[0] if inits else None
+        imgs = self._serve(ids, mask, gen, steps=num_inference_steps,
+                           num=ids.shape[0], sampler=sampler or self.sampler_name,
                            init_images=init_images, init_strength=init_strength,
                            restarts=restarts, restart_strength=restart_strength)
+        if mr is not None:
+            imgs = mr.gather_rows(imgs, n)
         return imgs.float().cpu().numpy()

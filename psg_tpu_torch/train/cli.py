@@ -4,7 +4,9 @@
     python -m psg_tpu_torch.train.cli [--stage 0|1|2|3|all] [--config config/train_config.yaml]
         [--vae-checkpoint PATH] [--diffusion-checkpoint PATH] [--experiment-name NAME]
         [--resume PATH] [--override section.key=value ...] [--device cpu]
+        [--mesh DATAxMODEL]
     python -m psg_tpu_torch.train.cli --data-stats
+    torchrun --nproc_per_node=N -m psg_tpu_torch.train.cli --mesh Nx1 ...
 
 ``all`` (the default) runs stages 1 -> 2 -> 3, the reference's three-stage
 contract; each stage's best checkpoint feeds the next.  With
@@ -27,6 +29,11 @@ Stage 2 reads its frozen VAE and text encoder from ``--vae-checkpoint``
 them from the config's seed (and says so); stage 3 reads stage 1's and
 stage 2's the same way (``--vae-checkpoint``, ``--diffusion-checkpoint``).
 ``--resume`` resumes the stage that ``--stage`` names.
+
+``--mesh DATAxMODEL`` trains stages 1-3 on a ('data', 'model') mesh of the
+processes torchrun (or ``PSG_TPU_COORDINATOR_ADDRESS`` and its two
+siblings) started, one process a card (``parallel/``): it raises where no
+such group is configured, and for stage 0, which has no mesh path.
 """
 
 from __future__ import annotations
@@ -56,7 +63,24 @@ def build_parser() -> argparse.ArgumentParser:
                    help="config override, e.g. training.diffusion_epochs=3")
     p.add_argument("--device", default=None,
                    help="torch device; default the GPU (raises without one)")
+    p.add_argument("--mesh", default=None,
+                   help="DATAxMODEL: train on a mesh of the torchrun processes")
     return p
+
+
+def make_cli_mesh(spec: str, device):
+    """The mesh ``--mesh DATAxMODEL`` names, over a group started from
+    torchrun's (or PSG_TPU_*) variables; raises where none is configured."""
+    from psg_tpu_torch.parallel import initialize_distributed, make_multihost_mesh
+
+    try:
+        data, model = (int(x) for x in spec.lower().split("x"))
+    except ValueError:
+        raise ValueError(f"--mesh {spec!r}: want DATAxMODEL, e.g. 4x2") from None
+    if not initialize_distributed(device=device):
+        raise RuntimeError("--mesh needs a process group: run under torchrun or set "
+                           "PSG_TPU_COORDINATOR_ADDRESS, _NUM_PROCESSES and _PROCESS_ID")
+    return make_multihost_mesh(data=data, model=model)
 
 
 def stage_ckpt(cfg, name: str, stage: str) -> Path:
@@ -90,6 +114,8 @@ def main(argv=None) -> int:
         return str(path) if path.exists() else None
 
     if args.stage == "0":
+        if args.mesh:
+            raise ValueError("stage 0 has no mesh path; run it without --mesh")
         from psg_tpu_torch.train.stage0_mlm import MLMPretrainer
 
         best = MLMPretrainer(cfg, experiment_name=name, device=args.device).train()
@@ -97,10 +123,11 @@ def main(argv=None) -> int:
         print(f"warm-start stage 1 with --override extra.text_init={best}")
         return 0
     vae_ckpt, diff_ckpt = args.vae_checkpoint, args.diffusion_checkpoint
+    mesh = make_cli_mesh(args.mesh, args.device) if args.mesh else None
     if run_all or args.stage == "1":
         from psg_tpu_torch.train.stage1_vae import VAETrainer
 
-        t = VAETrainer(cfg, experiment_name=name, device=args.device)
+        t = VAETrainer(cfg, experiment_name=name, device=args.device, mesh=mesh)
         if args.resume and args.stage == "1":
             t.load_checkpoint(args.resume)
         vae_ckpt = str(t.train())
@@ -114,7 +141,7 @@ def main(argv=None) -> int:
             from psg_tpu_torch.train.stage2_diffusion import DiffusionTrainer as Trainer
 
         t = Trainer(cfg, vae_checkpoint_path=stage_input(vae_ckpt, "vae"),
-                    experiment_name=name, device=args.device)
+                    experiment_name=name, device=args.device, mesh=mesh)
         if args.resume and args.stage == "2":
             t.load_checkpoint(args.resume)
         diff_ckpt = str(t.train())
@@ -126,7 +153,7 @@ def main(argv=None) -> int:
 
         t = FinalTrainer(cfg, vae_checkpoint_path=stage_input(vae_ckpt, "vae"),
                          diffusion_checkpoint_path=stage_input(diff_ckpt, "diffusion"),
-                         experiment_name=name, device=args.device)
+                         experiment_name=name, device=args.device, mesh=mesh)
         if args.resume and args.stage == "3":
             t.load_checkpoint(args.resume)
         best = t.train()

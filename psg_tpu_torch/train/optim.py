@@ -27,6 +27,10 @@ A ``frozen`` group gets no update and has no state.
 
 The skip and non-finite decisions are made on the host: one device-to-host
 read a step (the finite flag and the norms, which the trainer logs anyway).
+On a mesh they come from the reduced gradient, so every rank decides the
+same: under data parallelism each rank holds the averaged gradient whole;
+under tensor parallelism (``layout``, ``parallel/sharding.py``) a sharded
+leaf's squares and non-finite count are summed over 'model' first.
 """
 
 from __future__ import annotations
@@ -193,23 +197,27 @@ class Optimizer:
         return state
 
     @torch.no_grad()
-    def update(self, params, grads, state) -> dict:
+    def update(self, params, grads, state, layout=None) -> dict:
         """One step, in place on ``params`` and ``state`` (``grads`` has the
-        parameters' structure; its dict order may differ).  Returns
-        ``grad_norm`` (over all gradients), ``finite`` and the groups that
-        were ``applied``."""
+        parameters' structure; its dict order may differ).  ``layout``: the
+        ``ShardLayout`` params, moments and grads are cut by, if any.
+        Returns ``grad_norm`` (over all gradients), ``finite`` and the
+        groups that were ``applied``."""
         paths, p_leaves = zip(*tree.items(params))
         by_path = dict(tree.items(grads))     # matched by path, not by order
         g_leaves = [by_path[path] for path in paths]
         members = {name: [i for i, _, _ in self._members(params, name)]
                    for name in self.groups}
-        norms = {name: global_norm([g_leaves[i] for i in idx]).to(g_leaves[0].device)
-                 for name, idx in members.items()}
-        vals = torch.stack([tree_finite(g_leaves).float().to(g_leaves[0].device),
-                            global_norm(g_leaves).to(g_leaves[0].device),
-                            *norms.values()]).tolist()       # the step's one host read
+        if layout is not None and layout.sharded:
+            vals = _sharded_stats(paths, g_leaves, members, layout)
+        else:
+            norms = [global_norm([g_leaves[i] for i in idx]).to(g_leaves[0].device)
+                     for idx in members.values()]
+            vals = torch.stack([tree_finite(g_leaves).float().to(g_leaves[0].device),
+                                global_norm(g_leaves).to(g_leaves[0].device),
+                                *norms]).tolist()       # the step's one host read
         finite, grad_norm = vals[0] == 1.0, vals[1]
-        group_norm = dict(zip(norms, vals[2:]))
+        group_norm = dict(zip(members, vals[2:]))
 
         state["notfinite_count"] = 0 if finite else state["notfinite_count"] + 1
         state["total_notfinite"] += 0 if finite else 1
@@ -260,6 +268,37 @@ class Optimizer:
         torch._foreach_add_(ps, upd, alpha=-lr)
         if mu32 is not mu:
             torch._foreach_copy_(mu, mu32)
+
+
+def _sharded_stats(paths, g_leaves, members, layout) -> list:
+    """[finite, global norm, each group's norm] of gradients cut by
+    ``layout``: the sharded leaves' squares and non-finite counts summed
+    over 'model', the replicated leaves' (the same on every rank) added
+    once; one collective and one host read."""
+    import torch.distributed as dist
+
+    dev = g_leaves[0].device
+    sharded = [paths[i] in layout.dims for i in range(len(paths))]
+
+    def sums(idx):
+        """(non-finite count, sum of squares) over the leaves ``idx``."""
+        xs = [g_leaves[i] for i in idx if g_leaves[i].numel()]
+        if not xs:
+            return torch.zeros((), device=dev), torch.zeros((), device=dev)
+        bad = (~torch.isfinite(torch.stack(torch._foreach_norm(xs, float("inf"))))).sum()
+        sq = torch.stack([n.float() for n in torch._foreach_norm(
+            [x.float() if x.dtype != torch.float32 else x for x in xs])]).square().sum()
+        return bad.float(), sq
+
+    every = list(range(len(paths)))
+    parts = [every] + list(members.values())
+    sh = [sums([i for i in idx if sharded[i]]) for idx in parts]
+    rep = [sums([i for i in idx if not sharded[i]]) for idx in parts]
+    vec = torch.stack([sh[0][0]] + [sq for _, sq in sh])
+    dist.all_reduce(vec, group=layout.group)
+    bad = vec[0] + rep[0][0]
+    norms = (vec[1:] + torch.stack([sq for _, sq in rep])).sqrt()
+    return torch.cat([(bad == 0).float()[None], norms]).tolist()
 
 
 @torch.no_grad()

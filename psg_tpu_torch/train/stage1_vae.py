@@ -51,13 +51,12 @@ import torch
 
 from psg_tpu_torch.core import tree
 from psg_tpu_torch.core.checkpoint import (
-    CheckpointManager,
     load_metadata,
     load_params,
     read_checkpoint,
 )
 from psg_tpu_torch.core.config import Config, configure_torch
-from psg_tpu_torch.core.metrics import MetricsWriter, Throughput, setup_logging
+from psg_tpu_torch.core.metrics import Throughput
 from psg_tpu_torch.data.dataset import PokemonDataset
 from psg_tpu_torch.data.device_augment import normalize_batch
 from psg_tpu_torch.data.loader import make_loaders
@@ -74,7 +73,7 @@ from psg_tpu_torch.models.vae import latent_size_for, vae_apply, vae_init, vae_s
 from psg_tpu_torch.models.vgg import vgg16_init
 from psg_tpu_torch.nn.layers import prepare_weights
 from psg_tpu_torch.serve.generator import resolve_device
-from psg_tpu_torch.train.common import device_batch, get_tokenizer
+from psg_tpu_torch.train.common import MeshRun, device_batch, get_tokenizer, stage_io
 from psg_tpu_torch.train.fastpath import FastPath
 from psg_tpu_torch.train.optim import (
     build_optimizer,
@@ -104,21 +103,27 @@ class VAETrainer(FastPath):
     EPOCHS = "vae_epochs"
 
     def __init__(self, cfg: Config, experiment_name: str = "pokemon",
-                 sample_descriptions=None, *, device=None):
+                 sample_descriptions=None, *, device=None, mesh=None):
+        """``mesh``: a ('data', 'model') ``DeviceMesh`` this rank trains on
+        (stage 2's mechanism, ``train/common.py::MeshRun``: the global
+        batch's rows and draws, gradients averaged over 'data', with a
+        'model' axis the wide VAE/BERT kernels and their moments sharded by
+        ``unet_tp_rules``; VGG whole on every rank)."""
         self.device = resolve_device(device)
+        self.mesh, self.mesh_run = mesh, None
         if self.device.type == "cuda":
             configure_torch(cfg)
         self.cfg = cfg
         self.stage_dir = Path(cfg.experiment_dir) / f"{experiment_name}_vae"
-        self.ckpt = CheckpointManager(self.stage_dir / "checkpoints", self.STAGE)
-        self.log = setup_logging(self.stage_dir / "logs", self.STAGE)
-        self.metrics = MetricsWriter(self.stage_dir / "logs")
+        self.ckpt, self.log, self.metrics = stage_io(self.stage_dir, self.STAGE, mesh,
+                                                     self.device)
 
         ds = PokemonDataset(cfg.data.csv_path, cfg.data.image_dir,
                             image_size=cfg.data.image_size,
                             background_color=cfg.data.background_color,
                             text_len=cfg.data.text_len)
-        self.tokenizer = get_tokenizer(cfg, self.stage_dir, corpus=ds.full_descriptions)
+        self.tokenizer = get_tokenizer(cfg, self.stage_dir, corpus=ds.full_descriptions,
+                                       mesh=mesh)
         self.train_loader, self.val_loader, self.test_loader, self.ds = make_loaders(
             cfg, self.tokenizer, ds=ds)
 
@@ -156,6 +161,9 @@ class VAETrainer(FastPath):
                 "text": {"lr_schedule": schedule(o.text_encoder_lr or o.learning_rate * 0.1),
                          "max_grad_norm": o.text_max_grad_norm}},
             labels)
+        if mesh is not None:
+            self.mesh_run = MeshRun(mesh, params, tp_min_channels=int(
+                (cfg.extra or {}).get("tp_min_channels", 640)))
         self.state = self._fresh_state(params, step=0, rng=torch.Generator(
             device=self.device).manual_seed(cfg.seed))
         self.start_epoch = 0
@@ -165,8 +173,11 @@ class VAETrainer(FastPath):
     # -- setup ---------------------------------------------------------------
 
     def _fresh_state(self, params, *, step: int, rng: torch.Generator) -> TrainState:
+        """A state from whole params (cut to this rank's shards on a mesh
+        with a 'model' axis)."""
         params = tree.map(lambda t: t.detach().requires_grad_(True), params)
-        return TrainState(step, params, self.tx.init(params), rng)
+        state = TrainState(step, params, self.tx.init(params), rng)
+        return self.mesh_run.place(state) if self.mesh_run is not None else state
 
     def _load_bert(self, template):
         """Converted BERT weights (the bert subtree) from ``$PSG_TPU_BERT``
@@ -195,6 +206,9 @@ class VAETrainer(FastPath):
         return prepare_weights(vgg, self.compute_dtype), src
 
     def _batch(self, batch):
+        """A loader batch on the device: this rank's rows on a mesh."""
+        if self.mesh_run is not None:
+            batch = self.mesh_run.local(batch)
         return device_batch(batch, self.device)
 
     # -- the loss ------------------------------------------------------------
@@ -213,10 +227,15 @@ class VAETrainer(FastPath):
                         text_bias=text_bias_from_mask(batch["text_mask"]),
                         dtype=self.compute_dtype, noise=noise)
         t = self.cfg.training
-        return vae_loss(self.vgg_params, out["reconstructed"], batch["image"], out["mu"],
-                        out["logvar"], reconstruction_weight=t.reconstruction_weight,
-                        perceptual_weight=t.perceptual_weight, kl_weight=kl_weight,
-                        dtype=self.compute_dtype, sample_weights=sample_weights)
+        loss, parts = vae_loss(self.vgg_params, out["reconstructed"], batch["image"],
+                               out["mu"], out["logvar"],
+                               reconstruction_weight=t.reconstruction_weight,
+                               perceptual_weight=t.perceptual_weight, kl_weight=kl_weight,
+                               dtype=self.compute_dtype, sample_weights=sample_weights)
+        if self.mesh_run is not None:   # averaged over 'data': the global batch's loss
+            scale = self.mesh_run.loss_scale(sample_weights, batch["image"].shape[0])
+            loss, parts = loss * scale, {k: v * scale for k, v in parts.items()}
+        return loss, parts
 
     # -- steps ---------------------------------------------------------------
 
@@ -225,17 +244,24 @@ class VAETrainer(FastPath):
         gets a gradient, zero where the loss does not reach it (BERT's
         pooler), as ``jax.grad`` gives."""
         st = self.state
-        loss, parts = self._forward_loss(st.params, batch, kl_weight, "train", st.rng,
+        mr = self.mesh_run
+        gen, params = st.rng, st.params
+        if mr is not None:
+            gen, draws, params = mr.step_inputs(st, batch["image"].shape[0], draws)
+        loss, parts = self._forward_loss(params, batch, kl_weight, "train", gen,
                                          draws=draws)
-        leaves = tree.leaves(st.params)
+        paths, leaves = zip(*tree.items(params))
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        it = iter(g if g is not None else torch.zeros_like(p) for g, p in zip(grads, leaves))
-        return {k: v.detach() for k, v in parts.items()}, tree.map(lambda _: next(it),
-                                                                  st.params)
+        grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(grads, leaves)]
+        parts = {k: v.detach() for k, v in parts.items()}
+        if mr is not None:
+            grads, parts = mr.reduce_grads(paths, grads), mr.mean_parts(parts)
+        it = iter(grads)
+        return parts, tree.map(lambda _: next(it), st.params)
 
     def _apply_update(self, parts, grads, kl_weight: float) -> Dict:
         st = self.state
-        stats = self.tx.update(st.params, grads, st.opt_state)
+        stats = self.tx.update(st.params, grads, st.opt_state, layout=st.layout)
         st.step += 1
         return {**parts, "grad_norm": stats["grad_norm"], "kl_weight": kl_weight}
 
@@ -251,11 +277,15 @@ class VAETrainer(FastPath):
     def _eval(self, batch, kl_weight: float, valid: int) -> Dict:
         """Loss parts over the first ``valid`` samples of ``batch``: the
         loader pads the last eval batch by wraparound, and the padding is
-        weighted 0 in every term."""
-        w = (torch.arange(batch["image"].shape[0], device=self.device) < valid).float()
-        _, parts = self._forward_loss(self.state.params, batch, kl_weight, "val",
-                                      self._val_generator(), sample_weights=w)
-        return parts
+        weighted 0 in every term.  On a mesh ``batch`` is this rank's rows
+        and ``valid`` counts the global batch's."""
+        b = batch["image"].shape[0]
+        gen, first, params = self._val_generator(), 0, self.state.params
+        if self.mesh_run is not None:
+            gen, first, params = self.mesh_run.eval_inputs(gen, b, params)
+        w = (torch.arange(first, first + b, device=self.device) < valid).float()
+        _, parts = self._forward_loss(params, batch, kl_weight, "val", gen, sample_weights=w)
+        return self.mesh_run.mean_parts(parts) if self.mesh_run is not None else parts
 
     @torch.no_grad()
     def _sample(self, params, generator, text_ids, text_mask, noise=None):
@@ -331,11 +361,16 @@ class VAETrainer(FastPath):
         ids, mask = self.tokenizer.encode_batch(descs, self.cfg.data.text_len)
         gen = torch.Generator(device=self.device).manual_seed(
             self.cfg.seed + _SAMPLE_SEED_OFFSET + epoch)
-        imgs = self._sample(self.state.params, gen,
-                            torch.from_numpy(ids).long().to(self.device),
-                            torch.from_numpy(mask).long().to(self.device))
+        ids, mask = (torch.from_numpy(a).long().to(self.device) for a in (ids, mask))
+        mr = self.mesh_run
+        if mr is not None:   # this rank's rows of the grid, then all of them
+            gen, (ids, mask) = mr.split_rows(gen, len(descs), ids, mask)
+        imgs = self._sample(MeshRun.whole(mr, self.state.params), gen, ids, mask)
+        if mr is not None:
+            imgs = mr.gather_rows(imgs, len(descs))
         path = self.stage_dir / "samples" / f"epoch_{epoch:04d}.png"
-        save_image_grid(imgs.float().cpu().numpy(), path, captions=descs)
+        if mr is None or mr.writer:
+            save_image_grid(imgs.float().cpu().numpy(), path, captions=descs)
         return path, self.save_recon_grid(epoch, num=num)
 
     @torch.no_grad()
@@ -346,7 +381,7 @@ class VAETrainer(FastPath):
         imgs = normalize_batch(torch.from_numpy(self.ds.images[idx]).to(self.device))
         ids = torch.from_numpy(np.asarray(self.ds.text_ids[idx])).long().to(self.device)
         mask = torch.from_numpy(np.asarray(self.ds.text_mask[idx])).long().to(self.device)
-        params = self.state.params
+        params = MeshRun.whole(self.mesh_run, self.state.params)
         text_emb = text_encoder_apply(params["text"], ids, mask, self.bert_cfg,
                                       dtype=self.compute_dtype)
         recon = vae_apply(params["vae"], None, imgs, text_emb, "generate",
@@ -356,7 +391,10 @@ class VAETrainer(FastPath):
         orig, recon = imgs.float().cpu().numpy(), recon.float().cpu().numpy()
         inter = np.stack([orig, recon], 1).reshape((-1,) + orig.shape[1:])
         path = self.stage_dir / "samples" / f"recon_{epoch:04d}.png"
-        save_image_grid(inter, path)
+        if self.mesh_run is None:
+            save_image_grid(inter, path)
+        else:
+            self.mesh_run.write(lambda: save_image_grid(inter, path))
         return path
 
     def skipped_batches(self) -> int:
@@ -385,7 +423,7 @@ class VAETrainer(FastPath):
                 self.state = self.state.from_checkpoint(read_checkpoint(path))
             except (KeyError, ValueError) as e:
                 self.log.warning("full restore failed (%s): params-only restore", e)
-                params = load_params(path, self.state.params)
+                params = load_params(path, MeshRun.whole(self.mesh_run, self.state.params))
                 self.state = self._fresh_state(params, step=int(meta.get("step", 0)),
                                                rng=self.state.rng)
         self.start_epoch = int(meta.get("epoch", -1)) + 1
@@ -394,7 +432,7 @@ class VAETrainer(FastPath):
                       self.best_val)
 
     def train(self) -> Path:
-        if self.cfg.training.fast_path:
+        if self.cfg.training.fast_path and self.mesh is None:
             return self._train_fast()
         epochs = self.cfg.training.vae_epochs
         self.log.info("stage 1: %d epochs, %d train batches/epoch on %s", epochs,

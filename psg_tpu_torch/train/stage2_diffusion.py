@@ -31,6 +31,16 @@ order: the index uniforms, the augmentation parameters, the variant index,
 then the loss's; ``train_epoch_fast`` and ``validate_fast`` take them too
 (``draws``, one dict a step or a validation batch).
 
+On a mesh (``mesh=``, ``parallel/``) the trainer runs the classic path as
+the JAX trainer does on its mesh: every rank loads the global batch and
+keeps its rows, draws at the global shape and keeps its rows
+(``train/common.py::MeshRun``), averages gradients over 'data', and with a
+'model' axis holds its shards of the UNet's wide kernels, their EMA and
+moments (the rule ``unet_tp_rules`` at ``extra.tp_min_channels``, 640 by
+default); the frozen VAE and text encoder are whole on every rank.  Loss,
+gradients, parameters, the EMA and checkpoints then equal the
+single-process run's.  The fast path is off on a mesh, as in JAX.
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
@@ -44,15 +54,15 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from psg_tpu_torch.core import draws as draws_
 from psg_tpu_torch.core import tree
 from psg_tpu_torch.core.checkpoint import (
-    CheckpointManager,
     load_metadata,
     load_params,
     read_checkpoint,
 )
 from psg_tpu_torch.core.config import Config, configure_torch
-from psg_tpu_torch.core.metrics import MetricsWriter, Throughput, setup_logging
+from psg_tpu_torch.core.metrics import Throughput
 from psg_tpu_torch.data.dataset import PokemonDataset
 from psg_tpu_torch.data.loader import make_loaders
 from psg_tpu_torch.diffusion.sampling import ddim_sample, ddpm_sample_fast, dpmpp_2m_sample
@@ -76,7 +86,7 @@ from psg_tpu_torch.models.vae import (
 )
 from psg_tpu_torch.nn.layers import prepare_weights
 from psg_tpu_torch.serve.generator import resolve_device
-from psg_tpu_torch.train.common import device_batch, get_tokenizer
+from psg_tpu_torch.train.common import MeshRun, device_batch, get_tokenizer, stage_io
 from psg_tpu_torch.train.fastpath import FastPath
 from psg_tpu_torch.train.optim import (
     build_optimizer,
@@ -98,25 +108,27 @@ class DiffusionTrainer(FastPath):
     EPOCHS = "diffusion_epochs"
 
     def __init__(self, cfg: Config, vae_checkpoint_path, experiment_name: str = "pokemon",
-                 *, device=None):
+                 *, device=None, mesh=None):
         """``vae_checkpoint_path``: the stage-1 checkpoint holding the frozen
         ``vae`` and ``text`` parameters; it must exist and fit.  ``None``
         draws them from ``cfg.seed`` (as serving does without a
-        checkpoint)."""
+        checkpoint).  ``mesh``: a ('data', 'model') ``DeviceMesh``
+        (``parallel.make_mesh``) this rank trains on."""
         self.device = resolve_device(device)
+        self.mesh, self.mesh_run = mesh, None
         if self.device.type == "cuda":
             configure_torch(cfg)
         self.cfg = cfg
         self.stage_dir = Path(cfg.experiment_dir) / f"{experiment_name}_diffusion"
-        self.ckpt = CheckpointManager(self.stage_dir / "checkpoints", self.STAGE)
-        self.log = setup_logging(self.stage_dir / "logs", self.STAGE)
-        self.metrics = MetricsWriter(self.stage_dir / "logs")
+        self.ckpt, self.log, self.metrics = stage_io(self.stage_dir, self.STAGE, mesh,
+                                                     self.device)
 
         ds = PokemonDataset(cfg.data.csv_path, cfg.data.image_dir,
                             image_size=cfg.data.image_size,
                             background_color=cfg.data.background_color,
                             text_len=cfg.data.text_len)
-        self.tokenizer = get_tokenizer(cfg, self.stage_dir, corpus=ds.full_descriptions)
+        self.tokenizer = get_tokenizer(cfg, self.stage_dir, corpus=ds.full_descriptions,
+                                       mesh=mesh)
         self.train_loader, self.val_loader, self.test_loader, self.ds = make_loaders(
             cfg, self.tokenizer, ds=ds)
 
@@ -153,6 +165,9 @@ class DiffusionTrainer(FastPath):
                                "max_grad_norm": uo.get("max_grad_norm", o.max_grad_norm)}},
             tree.map(lambda _: "unet", unet_params))
         self.ema_decay = float(o.ema_decay)
+        if mesh is not None:
+            self.mesh_run = MeshRun(mesh, unet_params,
+                                    tp_min_channels=int(extra.get("tp_min_channels", 640)))
         self.state = self._fresh_state(unet_params, step=0,
                                        rng=torch.Generator(device=self.device)
                                        .manual_seed(cfg.seed))
@@ -176,10 +191,13 @@ class DiffusionTrainer(FastPath):
     # -- setup ---------------------------------------------------------------
 
     def _fresh_state(self, unet_params, *, step: int, rng: torch.Generator) -> TrainState:
+        """A state from whole UNet params (cut to this rank's shards on a
+        mesh with a 'model' axis)."""
         params = tree.map(lambda t: t.detach().requires_grad_(True), unet_params)
         ema = (tree.map(lambda t: t.detach().clone(), params)
                if self.ema_decay > 0 else None)
-        return TrainState(step, params, self.tx.init(params), rng, ema)
+        state = TrainState(step, params, self.tx.init(params), rng, ema)
+        return self.mesh_run.place(state) if self.mesh_run is not None else state
 
     def _load_frozen(self, vae_checkpoint_path) -> Dict:
         """The frozen {'vae', 'text'} parameters: from a stage-1 checkpoint,
@@ -203,6 +221,9 @@ class DiffusionTrainer(FastPath):
         return prepare_weights(params, self.compute_dtype)
 
     def _batch(self, batch):
+        """A loader batch on the device: this rank's rows on a mesh."""
+        if self.mesh_run is not None:
+            batch = self.mesh_run.local(batch)
         return device_batch(batch, self.device)
 
     # -- the loss ------------------------------------------------------------
@@ -223,21 +244,20 @@ class DiffusionTrainer(FastPath):
         with torch.no_grad():
             mu, logvar = vae_encoder_apply(frozen_vae["encoder"], images,
                                            dtype=self.compute_dtype)
-            rep = self._draw(draws, "rep_noise", lambda: torch.randn(
-                mu.shape, generator=generator, device=self.device))
+            rep = self._draw(draws, "rep_noise", lambda: draws_.randn(
+                generator, mu.shape, device=self.device))
             latent = reparameterize(None, mu, logvar, noise=rep)
             clamp = self.cfg.model.latent_clamp
             latent = latent.clamp(-clamp, clamp)
             b = latent.shape[0]
-            t = self._draw(draws, "t", lambda: torch.randint(
-                0, self.schedule.num_timesteps, (b,), generator=generator,
-                device=self.device)).long()
-            noise = self._draw(draws, "noise", lambda: torch.randn(
-                latent.shape, generator=generator, device=self.device)).float()
+            t = self._draw(draws, "t", lambda: draws_.randint(
+                generator, 0, self.schedule.num_timesteps, (b,), device=self.device)).long()
+            noise = self._draw(draws, "noise", lambda: draws_.randn(
+                generator, latent.shape, device=self.device)).float()
             noisy = self.schedule.add_noise(latent, noise, t)
         if train and self.cond_dropout > 0.0:
-            keep = self._draw(draws, "keep", lambda: torch.rand(
-                (b,) + (1,) * (text_emb.ndim - 1), generator=generator,
+            keep = self._draw(draws, "keep", lambda: draws_.rand(
+                generator, (b,) + (1,) * (text_emb.ndim - 1),
                 device=self.device) >= self.cond_dropout)
             text_emb = text_emb * keep.to(text_emb.dtype)
         pred = unet_apply(unet_params, noisy.to(latent.dtype), t, text_emb, self.spec,
@@ -253,8 +273,12 @@ class DiffusionTrainer(FastPath):
                 w = snr.clamp_max(self.snr_gamma) / snr.clamp_min(1e-8)
             sample_weights = w if sample_weights is None else w * sample_weights
         if self.loss_kind == "mse":
-            return mse_loss(pred, target, sample_weights=sample_weights)
-        return smooth_l1_loss(pred, target, beta=0.1, sample_weights=sample_weights)
+            loss = mse_loss(pred, target, sample_weights=sample_weights)
+        else:
+            loss = smooth_l1_loss(pred, target, beta=0.1, sample_weights=sample_weights)
+        if self.mesh_run is not None:   # averaged over 'data': the global batch's loss
+            loss = loss * self.mesh_run.loss_scale(sample_weights, b)
+        return loss
 
     def _text(self, frozen, batch):
         if "text_emb" in batch:         # the fast path's precomputed embeddings
@@ -272,27 +296,38 @@ class DiffusionTrainer(FastPath):
 
     # -- steps ---------------------------------------------------------------
 
-    def _dropout(self, draws):
-        """The step's attention dropout: the injected masks, else the
-        trainer's generator (none when the rate is 0)."""
+    def _dropout(self, draws, generator):
+        """The step's attention dropout: the injected masks, else
+        ``generator`` (none when the rate is 0)."""
         if draws is not None and "dropout" in draws:
             return draws["dropout"]
-        return self.state.rng if self.spec.attn_dropout > 0 else None
+        return generator if self.spec.attn_dropout > 0 else None
 
     def _grads(self, batch, draws=None):
-        """(loss, gradient tree) of one training batch."""
+        """(loss, gradient tree) of one training batch.  On a mesh: this
+        rank's rows of the global batch and of ``draws``, the step's draws
+        at the global shape; the loss and the gradients (this rank's
+        shards) averaged over the mesh."""
         st = self.state
-        loss = self._noise_loss(st.params, self.frozen, batch, st.rng, draws=draws,
-                                dropout=self._dropout(draws))
-        leaves = tree.leaves(st.params)
+        mr = self.mesh_run
+        gen, params = st.rng, st.params
+        if mr is not None:
+            gen, draws, params = mr.step_inputs(st, batch["image"].shape[0], draws)
+        loss = self._noise_loss(params, self.frozen, batch, gen, draws=draws,
+                                dropout=self._dropout(draws, gen))
+        paths, leaves = zip(*tree.items(params))
         grads = torch.autograd.grad(loss, leaves)
+        loss = loss.detach()
+        if mr is not None:
+            grads = mr.reduce_grads(paths, grads)
+            loss = mr.mean(loss)
         it = iter(grads)
-        return loss.detach(), tree.map(lambda _: next(it), st.params)
+        return loss, tree.map(lambda _: next(it), st.params)
 
     def _apply_update(self, loss, grads) -> Dict:
         """Optimizer step, then the EMA from the updated params."""
         st = self.state
-        stats = self.tx.update(st.params, grads, st.opt_state)
+        stats = self.tx.update(st.params, grads, st.opt_state, layout=st.layout)
         if self.ema_decay > 0:
             ema_update(st.ema, st.params, self.ema_decay)
         st.step += 1
@@ -310,10 +345,17 @@ class DiffusionTrainer(FastPath):
     def _eval(self, batch, valid: int) -> Dict:
         """Loss over the first ``valid`` samples of ``batch``: the loader
         pads the last eval batch by wraparound, and the padding is weighted
-        0, so the mean is exact over real samples."""
-        w = (torch.arange(batch["image"].shape[0], device=self.device) < valid).float()
-        loss = self._noise_loss(self.state.params, self.frozen, batch,
-                                self._val_generator(), sample_weights=w, train=False)
+        0, so the mean is exact over real samples.  On a mesh ``batch`` is
+        this rank's rows and ``valid`` counts the global batch's."""
+        b = batch["image"].shape[0]
+        gen, first, params = self._val_generator(), 0, self.state.params
+        if self.mesh_run is not None:
+            gen, first, params = self.mesh_run.eval_inputs(gen, b, params)
+        w = (torch.arange(first, first + b, device=self.device) < valid).float()
+        loss = self._noise_loss(params, self.frozen, batch, gen, sample_weights=w,
+                                train=False)
+        if self.mesh_run is not None:
+            loss = self.mesh_run.mean(loss)
         return {"loss": loss}
 
     @torch.no_grad()
@@ -408,15 +450,22 @@ class DiffusionTrainer(FastPath):
             stride = int(extra.get("sample_stride", 50))
         gen = torch.Generator(device=self.device).manual_seed(
             self.cfg.seed + _SAMPLE_SEED_OFFSET + epoch)
-        imgs = self._sample(self.state.sample_params, self.frozen, gen,
-                            torch.from_numpy(ids).long().to(self.device),
-                            torch.from_numpy(mask).long().to(self.device),
-                            num=len(descs), stride=stride,
+        ids, mask = (torch.from_numpy(a).long().to(self.device) for a in (ids, mask))
+        mr = self.mesh_run
+        if mr is not None:   # this rank's rows of the grid, then all of them
+            gen, (ids, mask) = mr.split_rows(gen, len(descs), ids, mask)
+        imgs = self._sample(MeshRun.whole(mr, self.state.sample_params), self.frozen, gen,
+                            ids, mask, num=ids.shape[0], stride=stride,
                             sampler=str(extra.get("sample_sampler", "ddim")),
                             steps=int(extra.get("sample_steps", 100)),
                             guidance=float(extra.get("sample_guidance", 0.0)))
         path = self.stage_dir / "samples" / f"epoch_{epoch:04d}.png"
-        save_image_grid(imgs.float().cpu().numpy(), path, captions=descs)
+        if mr is None:
+            save_image_grid(imgs.float().cpu().numpy(), path, captions=descs)
+        else:
+            imgs = mr.gather_rows(imgs, len(descs))
+            mr.write(lambda: save_image_grid(imgs.float().cpu().numpy(), path,
+                                             captions=descs))
         return path
 
     def skipped_batches(self) -> int:
@@ -449,14 +498,14 @@ class DiffusionTrainer(FastPath):
                 self.state = self.state.from_checkpoint(raw)
             except (KeyError, ValueError) as e:
                 self.log.warning("full restore failed (%s): params-only restore", e)
-                params = load_params(path, self.state.params)
+                params = load_params(path, MeshRun.whole(self.mesh_run, self.state.params))
                 self.state = self._fresh_state(params, step=int(meta.get("step", 0)),
                                                rng=self.state.rng)
         self.start_epoch = int(meta.get("epoch", -1)) + 1
         self.best_val = float(meta.get("metric", float("inf")))
 
     def train(self) -> Path:
-        if self.cfg.training.fast_path:
+        if self.cfg.training.fast_path and self.mesh is None:
             return self._train_fast()
         tr = self.cfg.training
         epochs = tr.diffusion_epochs

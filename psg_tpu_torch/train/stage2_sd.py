@@ -46,15 +46,15 @@ from typing import Dict, Optional
 
 import torch
 
+from psg_tpu_torch.core import draws as draws_
 from psg_tpu_torch.core import tree
 from psg_tpu_torch.core.checkpoint import (
-    CheckpointManager,
     load_metadata,
     load_params,
     read_checkpoint,
 )
 from psg_tpu_torch.core.config import Config, configure_torch
-from psg_tpu_torch.core.metrics import MetricsWriter, Throughput, setup_logging
+from psg_tpu_torch.core.metrics import Throughput
 from psg_tpu_torch.data.dataset import PokemonDataset
 from psg_tpu_torch.data.loader import make_loaders
 from psg_tpu_torch.diffusion.sampling import ddpm_sample_x0
@@ -85,7 +85,7 @@ from psg_tpu_torch.models.vae import (
 )
 from psg_tpu_torch.nn.layers import prepare_weights
 from psg_tpu_torch.serve.generator import resolve_device
-from psg_tpu_torch.train.common import get_tokenizer
+from psg_tpu_torch.train.common import MeshRun, get_tokenizer, stage_io
 from psg_tpu_torch.train.optim import (
     build_optimizer,
     labels_from_mask,
@@ -129,21 +129,26 @@ class SDDiffusionTrainer:
     STAGE = "diffusers"
 
     def __init__(self, cfg: Config, vae_checkpoint_path, experiment_name: str = "pokemon",
-                 *, device=None):
+                 *, device=None, mesh=None):
+        """``mesh``: a ('data', 'model') ``DeviceMesh`` this rank trains on
+        (stage 2's mechanism, ``train/common.py::MeshRun``; with a 'model'
+        axis the wide SD-UNet and BERT kernels and their moments are sharded
+        by ``unet_tp_rules``; the frozen VAE whole on every rank)."""
         self.device = resolve_device(device)
+        self.mesh, self.mesh_run = mesh, None
         if self.device.type == "cuda":
             configure_torch(cfg)
         self.cfg = cfg
         self.stage_dir = Path(cfg.experiment_dir) / f"{experiment_name}_diffusers"
-        self.ckpt = CheckpointManager(self.stage_dir / "checkpoints", self.STAGE)
-        self.log = setup_logging(self.stage_dir / "logs", self.STAGE)
-        self.metrics = MetricsWriter(self.stage_dir / "logs")
+        self.ckpt, self.log, self.metrics = stage_io(self.stage_dir, self.STAGE, mesh,
+                                                     self.device)
 
         ds = PokemonDataset(cfg.data.csv_path, cfg.data.image_dir,
                             image_size=cfg.data.image_size,
                             background_color=cfg.data.background_color,
                             text_len=cfg.data.text_len)
-        self.tokenizer = get_tokenizer(cfg, self.stage_dir, corpus=ds.full_descriptions)
+        self.tokenizer = get_tokenizer(cfg, self.stage_dir, corpus=ds.full_descriptions,
+                                       mesh=mesh)
         self.train_loader, self.val_loader, self.test_loader, self.ds = make_loaders(
             cfg, self.tokenizer, ds=ds)
 
@@ -191,6 +196,9 @@ class SDDiffusionTrainer:
                 "text": {"lr_schedule": schedule(text_lr),
                          "max_grad_norm": o.max_grad_norm * 0.5}},
             labels)
+        if mesh is not None:
+            self.mesh_run = MeshRun(mesh, params, tp_min_channels=int(
+                (cfg.extra or {}).get("tp_min_channels", 640)))
         self.state = self._fresh_state(params, step=0, rng=torch.Generator(
             device=self.device).manual_seed(cfg.seed))
         self.start_epoch = 0
@@ -199,8 +207,11 @@ class SDDiffusionTrainer:
     # -- setup ---------------------------------------------------------------
 
     def _fresh_state(self, params, *, step: int, rng: torch.Generator) -> TrainState:
+        """A state from whole params (cut to this rank's shards on a mesh
+        with a 'model' axis)."""
         params = tree.map(lambda t: t.detach().requires_grad_(True), params)
-        return TrainState(step, params, self.tx.init(params), rng)
+        state = TrainState(step, params, self.tx.init(params), rng)
+        return self.mesh_run.place(state) if self.mesh_run is not None else state
 
     def _load_stage1(self, path):
         """(VAE, text encoder) from the stage-1 checkpoint, which must exist
@@ -241,6 +252,9 @@ class SDDiffusionTrainer:
         return bridge.fit(template, tree_, str(path))
 
     def _batch(self, batch):
+        """A loader batch on the device: this rank's rows on a mesh."""
+        if self.mesh_run is not None:
+            batch = self.mesh_run.local(batch)
         return sd_batch(batch, self.device)
 
     # -- the loss ------------------------------------------------------------
@@ -259,21 +273,23 @@ class SDDiffusionTrainer:
         with torch.no_grad():
             mu, logvar = vae_encoder_apply(self.frozen_vae["encoder"], batch["image"],
                                            dtype=self.compute_dtype)
-            rep = self._draw(draws, "rep_noise", lambda: torch.randn(
-                mu.shape, generator=generator, device=self.device))
+            rep = self._draw(draws, "rep_noise", lambda: draws_.randn(
+                generator, mu.shape, device=self.device))
             clamp = self.cfg.model.latent_clamp
             latent = reparameterize(None, mu, logvar, noise=rep).clamp(-clamp, clamp)
             b = latent.shape[0]
-            t = self._draw(draws, "t", lambda: torch.randint(
-                0, self.schedule.num_timesteps, (b,), generator=generator,
-                device=self.device)).long()
-            noise = self._draw(draws, "noise", lambda: torch.randn(
-                latent.shape, generator=generator, device=self.device)).float()
+            t = self._draw(draws, "t", lambda: draws_.randint(
+                generator, 0, self.schedule.num_timesteps, (b,), device=self.device)).long()
+            noise = self._draw(draws, "noise", lambda: draws_.randn(
+                generator, latent.shape, device=self.device)).float()
             noisy = self.schedule.add_noise(latent, noise, t)
         pred = sd_wrapper_apply(params["sd"], noisy.to(text_emb.dtype), t, text_emb,
                                 self.spec, text_bias=text_bias_from_mask(batch["desc_mask"]),
                                 dtype=self.compute_dtype)
-        return mse_loss(pred, noise, sample_weights=sample_weights)
+        loss = mse_loss(pred, noise, sample_weights=sample_weights)
+        if self.mesh_run is not None:   # averaged over 'data': the global batch's loss
+            loss = loss * self.mesh_run.loss_scale(sample_weights, b)
+        return loss
 
     # -- steps ---------------------------------------------------------------
 
@@ -282,14 +298,23 @@ class SDDiffusionTrainer:
         loss does not reach it (BERT's pooler), as ``jax.value_and_grad``
         gives."""
         st = self.state
-        loss = self._noise_loss(st.params, batch, st.rng, draws=draws)
-        leaves = tree.leaves(st.params)
+        mr = self.mesh_run
+        gen, params = st.rng, st.params
+        if mr is not None:
+            gen, draws, params = mr.step_inputs(st, batch["image"].shape[0], draws)
+        loss = self._noise_loss(params, batch, gen, draws=draws)
+        paths, leaves = zip(*tree.items(params))
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        it = iter(g if g is not None else torch.zeros_like(p) for g, p in zip(grads, leaves))
-        return loss.detach(), tree.map(lambda _: next(it), st.params)
+        grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(grads, leaves)]
+        loss = loss.detach()
+        if mr is not None:
+            grads, loss = mr.reduce_grads(paths, grads), mr.mean(loss)
+        it = iter(grads)
+        return loss, tree.map(lambda _: next(it), st.params)
 
     def _apply_update(self, loss, grads) -> Dict:
-        stats = self.tx.update(self.state.params, grads, self.state.opt_state)
+        stats = self.tx.update(self.state.params, grads, self.state.opt_state,
+                               layout=self.state.layout)
         self.state.step += 1
         return {"loss": loss, "grad_norm": stats["grad_norm"]}
 
@@ -299,11 +324,17 @@ class SDDiffusionTrainer:
     @torch.no_grad()
     def _eval(self, batch, valid: int, draws=None) -> Dict:
         """Loss over the first ``valid`` samples of ``batch`` (the loader's
-        wraparound padding weighted 0)."""
-        w = (torch.arange(batch["image"].shape[0], device=self.device) < valid).float()
+        wraparound padding weighted 0).  On a mesh ``batch`` is this rank's
+        rows and ``valid`` counts the global batch's."""
+        b = batch["image"].shape[0]
         gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed + _VAL_SEED_OFFSET)
-        return {"loss": self._noise_loss(self.state.params, batch, gen, draws=draws,
-                                         sample_weights=w)}
+        params, first, mr = self.state.params, 0, self.mesh_run
+        if mr is not None:
+            gen, first, params = mr.eval_inputs(gen, b, params)
+            draws = mr.local(draws)
+        w = (torch.arange(first, first + b, device=self.device) < valid).float()
+        loss = self._noise_loss(params, batch, gen, draws=draws, sample_weights=w)
+        return {"loss": mr.mean(loss) if mr is not None else loss}
 
     @torch.no_grad()
     def _sample(self, params, generator, text_ids, text_mask, *, num: int, steps: int = 50,
@@ -359,12 +390,19 @@ class SDDiffusionTrainer:
         ids, mask = self.tokenizer.encode_batch(descs, self.cfg.data.text_len)
         gen = torch.Generator(device=self.device).manual_seed(
             self.cfg.seed + _SAMPLE_SEED_OFFSET + epoch)
-        imgs = self._sample(self.state.params, gen,
-                            torch.from_numpy(ids).long().to(self.device),
-                            torch.from_numpy(mask).long().to(self.device),
-                            num=len(descs), steps=steps)
+        ids, mask = (torch.from_numpy(a).long().to(self.device) for a in (ids, mask))
+        mr = self.mesh_run
+        if mr is not None:   # this rank's rows of the grid, then all of them
+            gen, (ids, mask) = mr.split_rows(gen, len(descs), ids, mask)
+        imgs = self._sample(MeshRun.whole(mr, self.state.params), gen, ids, mask,
+                            num=ids.shape[0], steps=steps)
         path = self.stage_dir / "samples" / f"epoch_{epoch:04d}.png"
-        save_image_grid(imgs.float().cpu().numpy(), path, captions=descs)
+        if mr is None:
+            save_image_grid(imgs.float().cpu().numpy(), path, captions=descs)
+        else:
+            imgs = mr.gather_rows(imgs, len(descs))
+            mr.write(lambda: save_image_grid(imgs.float().cpu().numpy(), path,
+                                             captions=descs))
         return path
 
     def skipped_batches(self) -> int:
@@ -392,7 +430,7 @@ class SDDiffusionTrainer:
                 self.state = self.state.from_checkpoint(read_checkpoint(path))
             except (KeyError, ValueError) as e:
                 self.log.warning("full restore failed (%s): params-only restore", e)
-                params = load_params(path, self.state.params)
+                params = load_params(path, MeshRun.whole(self.mesh_run, self.state.params))
                 self.state = self._fresh_state(params, step=int(meta.get("step", 0)),
                                                rng=self.state.rng)
         self.start_epoch = int(meta.get("epoch", -1)) + 1

@@ -74,13 +74,12 @@ import torch
 
 from psg_tpu_torch.core import tree
 from psg_tpu_torch.core.checkpoint import (
-    CheckpointManager,
     load_metadata,
     load_params,
     read_checkpoint,
 )
 from psg_tpu_torch.core.config import Config, configure_torch
-from psg_tpu_torch.core.metrics import MetricsWriter, Throughput, setup_logging
+from psg_tpu_torch.core.metrics import Throughput
 from psg_tpu_torch.data.dataset import PokemonDataset
 from psg_tpu_torch.data.loader import make_loaders
 from psg_tpu_torch.diffusion.sampling import ddim_sample, ddpm_sample, dpmpp_2m_sample
@@ -106,7 +105,7 @@ from psg_tpu_torch.models.vae import (
 from psg_tpu_torch.nn.layers import prepare_weights
 from psg_tpu_torch.serve.generator import resolve_device
 from psg_tpu_torch.text.bpe import ClipBPETokenizer
-from psg_tpu_torch.train.common import device_batch, get_tokenizer
+from psg_tpu_torch.train.common import MeshRun, device_batch, get_tokenizer, stage_io
 from psg_tpu_torch.train.fastpath import FastPath
 from psg_tpu_torch.train.optim import build_optimizer, make_lr_schedule, skipped_steps
 from psg_tpu_torch.train.state import TrainState
@@ -125,25 +124,30 @@ class FinalTrainer(FastPath):
     EPOCHS = "final_epochs"
 
     def __init__(self, cfg: Config, vae_checkpoint_path, diffusion_checkpoint_path,
-                 experiment_name: str = "pokemon", *, device=None):
+                 experiment_name: str = "pokemon", *, device=None, mesh=None):
         """``vae_checkpoint_path``: the stage-1 checkpoint ({vae, text});
         ``diffusion_checkpoint_path``: the stage-2 checkpoint (the UNet).  A
         path that is given must exist and fit; ``None`` draws that part
-        from the seed."""
+        from the seed.  ``mesh``: a ('data', 'model') ``DeviceMesh`` this
+        rank trains on (stage 2's mechanism, ``train/common.py::MeshRun``;
+        with a 'model' axis the wide kernels of all three parts and their
+        moments are sharded by ``unet_tp_rules``; CLIP whole on every
+        rank)."""
         self.device = resolve_device(device)
+        self.mesh, self.mesh_run = mesh, None
         if self.device.type == "cuda":
             configure_torch(cfg)
         self.cfg = cfg
         self.stage_dir = Path(cfg.experiment_dir) / f"{experiment_name}_final"
-        self.ckpt = CheckpointManager(self.stage_dir / "checkpoints", self.STAGE)
-        self.log = setup_logging(self.stage_dir / "logs", self.STAGE)
-        self.metrics = MetricsWriter(self.stage_dir / "logs")
+        self.ckpt, self.log, self.metrics = stage_io(self.stage_dir, self.STAGE, mesh,
+                                                     self.device)
 
         ds = PokemonDataset(cfg.data.csv_path, cfg.data.image_dir,
                             image_size=cfg.data.image_size,
                             background_color=cfg.data.background_color,
                             text_len=cfg.data.text_len)
-        self.tokenizer = get_tokenizer(cfg, self.stage_dir, corpus=ds.full_descriptions)
+        self.tokenizer = get_tokenizer(cfg, self.stage_dir, corpus=ds.full_descriptions,
+                                       mesh=mesh)
         self.train_loader, self.val_loader, self.test_loader, self.ds = make_loaders(
             cfg, self.tokenizer, ds=ds)
 
@@ -191,6 +195,9 @@ class FinalTrainer(FastPath):
         self.tx_phase2 = build_optimizer(o, groups, self._labels(params, joint=True))
         self.phase = "text_encoder"
         self.tx = self.tx_phase1
+        if mesh is not None:
+            self.mesh_run = MeshRun(mesh, params, tp_min_channels=int(
+                (cfg.extra or {}).get("tp_min_channels", 640)))
         self.state = self._fresh_state(params, step=0, rng=torch.Generator(
             device=self.device).manual_seed(cfg.seed + _STATE_SEED_OFFSET))
         self.start_epoch = 0
@@ -212,8 +219,11 @@ class FinalTrainer(FastPath):
                 for k, v in params.items()}
 
     def _fresh_state(self, params, *, step: int, rng: torch.Generator) -> TrainState:
+        """A state from whole params (cut to this rank's shards on a mesh
+        with a 'model' axis)."""
         params = tree.map(lambda t: t.detach().requires_grad_(True), params)
-        return TrainState(step, params, self.tx.init(params), rng)
+        state = TrainState(step, params, self.tx.init(params), rng)
+        return self.mesh_run.place(state) if self.mesh_run is not None else state
 
     def _load_params(self, vae_path, diff_path) -> Dict:
         """{vae, text, unet}: the stage-1 and stage-2 checkpoints where given
@@ -267,6 +277,9 @@ class FinalTrainer(FastPath):
         return prepare_weights(clip, self.compute_dtype), src
 
     def _batch(self, batch):
+        """A loader batch on the device: this rank's rows on a mesh."""
+        if self.mesh_run is not None:
+            batch = self.mesh_run.local(batch)
         return device_batch(batch, self.device)
 
     # -- the loss ------------------------------------------------------------
@@ -300,7 +313,11 @@ class FinalTrainer(FastPath):
                                    self.clip_cfg, dtype=self.compute_dtype,
                                    sample_weights=sample_weights)
         total = l1 + 0.1 * mse + self.cfg.training.clip_weight * clip
-        return total, {"total_loss": total, "l1_loss": l1, "mse_loss": mse, "clip_loss": clip}
+        parts = {"total_loss": total, "l1_loss": l1, "mse_loss": mse, "clip_loss": clip}
+        if self.mesh_run is not None:   # averaged over 'data': the global batch's loss
+            scale = self.mesh_run.loss_scale(sample_weights, batch["image"].shape[0])
+            total, parts = total * scale, {k: v * scale for k, v in parts.items()}
+        return total, parts
 
     # -- steps ---------------------------------------------------------------
 
@@ -309,16 +326,23 @@ class FinalTrainer(FastPath):
         gets a gradient, zero where the loss does not reach it (the
         encoder, the UNet, BERT's pooler), as ``jax.grad`` gives."""
         st = self.state
-        loss, parts = self._forward_loss(st.params, batch, st.rng, draws)
-        leaves = tree.leaves(st.params)
+        mr = self.mesh_run
+        gen, params = st.rng, st.params
+        if mr is not None:
+            gen, draws, params = mr.step_inputs(st, batch["image"].shape[0], draws)
+        loss, parts = self._forward_loss(params, batch, gen, draws)
+        paths, leaves = zip(*tree.items(params))
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        it = iter(g if g is not None else torch.zeros_like(p) for g, p in zip(grads, leaves))
-        return {k: v.detach() for k, v in parts.items()}, tree.map(lambda _: next(it),
-                                                                  st.params)
+        grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(grads, leaves)]
+        parts = {k: v.detach() for k, v in parts.items()}
+        if mr is not None:
+            grads, parts = mr.reduce_grads(paths, grads), mr.mean_parts(parts)
+        it = iter(grads)
+        return parts, tree.map(lambda _: next(it), st.params)
 
     def _apply_update(self, parts, grads) -> Dict:
         st = self.state
-        stats = self.tx.update(st.params, grads, st.opt_state)
+        stats = self.tx.update(st.params, grads, st.opt_state, layout=st.layout)
         st.step += 1
         return {**parts, "grad_norm": stats["grad_norm"]}
 
@@ -334,11 +358,16 @@ class FinalTrainer(FastPath):
     def _eval(self, batch, valid: int, draws=None) -> Dict:
         """Loss parts over the first ``valid`` samples of ``batch``: the
         loader pads the last eval batch by wraparound, and the padding is
-        weighted 0 in every term."""
-        w = (torch.arange(batch["image"].shape[0], device=self.device) < valid).float()
-        _, parts = self._forward_loss(self.state.params, batch, self._val_generator(),
-                                      draws, sample_weights=w)
-        return parts
+        weighted 0 in every term.  On a mesh ``batch`` is this rank's rows
+        and ``valid`` counts the global batch's."""
+        b = batch["image"].shape[0]
+        gen, first, params = self._val_generator(), 0, self.state.params
+        if self.mesh_run is not None:
+            gen, first, params = self.mesh_run.eval_inputs(gen, b, params)
+            draws = self.mesh_run.local(draws)
+        w = (torch.arange(first, first + b, device=self.device) < valid).float()
+        _, parts = self._forward_loss(params, batch, gen, draws, sample_weights=w)
+        return self.mesh_run.mean_parts(parts) if self.mesh_run is not None else parts
 
     @torch.no_grad()
     def _sample(self, params, generator, text_ids, text_mask, *, num: int, steps: int = 50,
@@ -449,13 +478,20 @@ class FinalTrainer(FastPath):
             steps = int(extra.get("sample_steps", 100))
         gen = torch.Generator(device=self.device).manual_seed(
             self.cfg.seed + _SAMPLE_SEED_OFFSET + epoch)
-        imgs = self._sample(self.state.params, gen,
-                            torch.from_numpy(ids).long().to(self.device),
-                            torch.from_numpy(mask).long().to(self.device),
-                            num=len(descs), steps=steps,
+        ids, mask = (torch.from_numpy(a).long().to(self.device) for a in (ids, mask))
+        mr = self.mesh_run
+        if mr is not None:   # this rank's rows of the grid, then all of them
+            gen, (ids, mask) = mr.split_rows(gen, len(descs), ids, mask)
+        imgs = self._sample(MeshRun.whole(mr, self.state.params), gen, ids, mask,
+                            num=ids.shape[0], steps=steps,
                             sampler=str(extra.get("sample_sampler", "ddim")))
         path = self.stage_dir / "samples" / f"final_epoch_{epoch:04d}.png"
-        save_image_grid(imgs.float().cpu().numpy(), path, captions=descs)
+        if mr is None:
+            save_image_grid(imgs.float().cpu().numpy(), path, captions=descs)
+        else:
+            imgs = mr.gather_rows(imgs, len(descs))
+            mr.write(lambda: save_image_grid(imgs.float().cpu().numpy(), path,
+                                             captions=descs))
         return path
 
     def skipped_batches(self) -> int:
@@ -487,7 +523,7 @@ class FinalTrainer(FastPath):
             self.state = self.state.from_checkpoint(read_checkpoint(path))
         except (KeyError, ValueError) as e:
             self.log.warning("full restore failed (%s): params-only restore", e)
-            params = load_params(path, self.state.params)
+            params = load_params(path, MeshRun.whole(self.mesh_run, self.state.params))
             self.state = self._fresh_state(params, step=int(meta.get("step", 0)),
                                            rng=self.state.rng)
         self.ckpt.best_metric = min(self.ckpt.best_metric,
@@ -498,7 +534,7 @@ class FinalTrainer(FastPath):
                       self.start_epoch, self.best_val)
 
     def train(self) -> Path:
-        if self.cfg.training.fast_path:
+        if self.cfg.training.fast_path and self.mesh is None:
             return self._train_fast()
         t = self.cfg.training
         epochs = t.final_epochs

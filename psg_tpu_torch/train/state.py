@@ -5,12 +5,17 @@ needs to resume, in one object the checkpoint writer saves.
 - ``params``     the trained parameter tree (fp32);
 - ``opt_state``  the optimizer's state (``train/optim.py``);
 - ``rng``        the trainer's ``torch.Generator`` (saved as its state);
-- ``ema``        the EMA of the parameters for sampling, or ``None``.
+- ``ema``        the EMA of the parameters for sampling, or ``None``;
+- ``layout``     on a mesh with a 'model' axis, the ``ShardLayout`` the
+                 params, EMA and Adam moments are cut by (each rank holds
+                 its shards; ``parallel/sharding.py``), else ``None``.
 
 ``to_checkpoint`` lays it out as the JAX package's ``TrainState`` is saved:
 ``params`` and ``ema`` in the JAX layout, so ``psg_tpu``'s ``load_params``
 and ``load_sample_params`` read them; ``opt_state`` and ``rng`` in the
-port's own layout, which only ``from_checkpoint`` reads back.
+port's own layout, which only ``from_checkpoint`` reads back.  A sharded
+state is gathered first, so a checkpoint is the same from any mesh; both
+are collectives then, which every rank of the mesh calls.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ class TrainState:
     opt_state: Dict[str, Any]
     rng: torch.Generator
     ema: Optional[Any] = None
+    layout: Optional[Any] = None
 
     @property
     def sample_params(self):
@@ -39,6 +45,8 @@ class TrainState:
         return self.ema if self.ema is not None else self.params
 
     def to_checkpoint(self) -> Dict[str, Any]:
+        if self.layout is not None:
+            return self.layout.unplace(self).to_checkpoint()
         return {"step": np.asarray(self.step, np.int32),
                 "params": bridge.to_jax(self.params),
                 "opt_state": _opt_to_checkpoint(self.opt_state),
@@ -47,7 +55,10 @@ class TrainState:
 
     def from_checkpoint(self, raw) -> "TrainState":
         """This state's structure, shapes, dtypes and devices filled from a
-        checkpoint it wrote; raises on any mismatch."""
+        checkpoint it wrote; raises on any mismatch.  A sharded state is
+        filled whole and cut to its shards again."""
+        if self.layout is not None:
+            return self.layout.place(self.layout.unplace(self).from_checkpoint(raw))
         params = tree.map(lambda t, ref: t.requires_grad_(ref.requires_grad),
                           bridge.fit(self.params, bridge.from_jax(raw["params"]), "params"),
                           self.params)

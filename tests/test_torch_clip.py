@@ -23,6 +23,10 @@ from psg_tpu_torch.models import bridge
 from psg_tpu_torch.models import clip
 from psg_tpu_torch.text import bpe
 
+# one intra-op thread: the suite runs several test processes at once, and
+# a pool of one thread per core in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 CAPTIONS = ["Bulbasaur. A small green creature with a plant bulb on its back.",
             "  a RED fire lizard's   tail burns at 1200 degrees!! ",
             "it's 2 meters tall &amp; weighs 90.5 kg; don't touch (seriously)",

@@ -27,6 +27,10 @@ from psg_tpu_torch.core import tree
 from psg_tpu_torch.models import bridge
 from psg_tpu_torch.models import convert as pconvert
 
+# one intra-op thread: the suite runs several test processes at once, and
+# a pool of one thread per core in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 _PROBE_SHAPE = (2, 3, 5, 7)
 _LAYOUTS = {(2, 3, 5, 7): "copy", (7, 5, 3, 2): "T", (5, 7, 3, 2): "conv", (105, 2): "patch"}
 

@@ -672,3 +672,47 @@ def test_memory_and_timing_utils_on_the_card(card):
     best = find_max_batch_size(lambda b: (torch.zeros(b, 4096, device=card),), step,
                                limit=256, hbm_bytes=budget, safety=1.0)
     assert 1 <= best < 256
+
+
+def test_one_rank_nccl_mesh_step_equals_the_step_without(card, tmp_path):
+    """A one-rank NCCL group and a (1, 1) mesh: the tiny stage-2 trainer's
+    step on the card (fp32, cuDNN deterministic) with min-SNR weights,
+    cond-dropout and attention dropout, its validation and its checkpoint
+    equal the same trainer's without a mesh: loss within rel 1e-5,
+    gradients within 1e-4 * max|g| + 1e-7, params and EMA within 1e-6 (the
+    CPU mesh tests' bounds, tests/test_torch_parallel.py); the mesh's
+    gradient all-reduce went through NCCL."""
+    import socket
+
+    import torch.distributed as dist
+
+    import torch_mesh_worker as W
+    from psg_tpu_torch.data.synthetic import write_sprite_corpus
+    from psg_tpu_torch.parallel import initialize_distributed, make_mesh
+
+    write_sprite_corpus(tmp_path / "corpus", n=12, seed=0, size=64)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    assert initialize_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda", timeout_s=120)
+    try:
+        assert dist.get_backend() == "nccl"
+        runs = {}
+        for name, mesh in (("plain", None), ("mesh", make_mesh(data=1, model=1))):
+            t = W.stage2_trainer(tmp_path, f"exp_{name}", mesh, device="cuda")
+            runs[name] = W.stage2_step(t, W.global_batch(t.tokenizer))
+            if mesh is not None:
+                assert t.mesh_run.reducer.bucket_bytes_total == 4 * sum(
+                    x.numel() for x in runs[name]["params"].values())
+    finally:
+        dist.destroy_process_group()
+        torch.backends.cudnn.deterministic = deterministic
+    got, ref = runs["mesh"], runs["plain"]
+    np.testing.assert_allclose([got["loss"], got["val"]], [ref["loss"], ref["val"]], rtol=1e-5)
+    for path, r in ref["grads"].items():
+        assert float((got["grads"][path] - r).abs().max()) <= 1e-4 * float(r.abs().max()) + 1e-7
+    for k in ("params", "ema"):
+        for path, r in ref[k].items():
+            assert float((got[k][path] - r).abs().max()) <= 1e-6, (k, path)

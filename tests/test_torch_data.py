@@ -10,6 +10,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import psg_tpu.data.native as jax_native
 from psg_tpu.data.caption_augment import caption_variants as jax_caption_variants
@@ -25,6 +26,10 @@ from psg_tpu_torch.data.dataset import PokemonDataset, dataset_statistics, split
 from psg_tpu_torch.data.loader import Loader
 from psg_tpu_torch.data.synthetic import write_sprite_corpus
 from psg_tpu_torch.text.tokenizer import WordPieceTokenizer
+
+# one intra-op thread: the suite runs several test processes at once, and
+# a pool of one thread per core in each of them oversubscribes the CPU
+torch.set_num_threads(1)
 
 VOCAB = Path(__file__).resolve().parent.parent / "experiments/evidence_r5c_vae/vocab.txt"
 

@@ -37,6 +37,10 @@ from psg_tpu_torch.models.text_encoder import text_encoder_apply
 from psg_tpu_torch.text.tokenizer import WordPieceTokenizer
 from psg_tpu_torch.train import fastpath
 
+# one intra-op thread: the suite runs several test processes at once, and
+# a pool of one thread per core in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 VOCAB = Path(__file__).resolve().parent.parent / "experiments/evidence_r5c_vae/vocab.txt"
 AUG_ATOL, AUG_MEAN_ATOL, EDGE_PX = 1e-4, 1e-5, 1e-3
 

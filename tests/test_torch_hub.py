@@ -32,6 +32,10 @@ from psg_tpu_torch.eval import metrics as tmetrics
 from psg_tpu_torch.serve import app as tapp
 from psg_tpu_torch.serve import hub as thub
 
+# one intra-op thread: the suite runs several test processes at once, and
+# a pool of one thread per core in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 
 def _fake_ckpt(root, run, stage, *, metric=None, vae_checkpoint=None,
                eval_at_1=None, eval_recipe=None, mtime=None):

@@ -32,6 +32,10 @@ from psg_tpu_torch.models import bridge
 from psg_tpu_torch.serve import hub
 from test_torch_convert import _state_dict
 
+# one intra-op thread: the suite runs several test processes at once, and
+# a pool of one thread per core in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parent.parent
 SCRIPT = ROOT / "scripts" / "torch_import_reference_checkpoint.py"
 

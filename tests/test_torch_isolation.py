@@ -1,5 +1,6 @@
 """psg_tpu_torch stands alone: importing every one of its modules loads
-neither JAX nor any module of psg_tpu, and chip_smoke.py imports neither."""
+neither JAX nor any module of psg_tpu, and chip_smoke.py and the mesh
+tests' worker (tests/torch_mesh_worker.py) import neither."""
 
 import ast
 import json
@@ -8,6 +9,11 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
+
+# one intra-op thread: the suite runs several test processes at once, and
+# a pool of one thread per core in each of them oversubscribes the CPU
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "psg_tpu_torch"
@@ -41,7 +47,9 @@ def test_port_modules_are_all_found():
                  "models.clip", "train.stage3_final", "train.stage0_mlm",
                  "train.fastpath", "data.device_augment", "models.sd_unet",
                  "models.convert", "train.stage2_sd", "train.legacy", "utils.seed",
-                 "utils.profiling", "utils.memory", "utils.attention_viz"):
+                 "utils.profiling", "utils.memory", "utils.attention_viz",
+                 "parallel", "parallel.mesh", "parallel.sharding", "parallel.multihost",
+                 "graft_entry", "core.draws"):
         assert f"psg_tpu_torch.{name}" in MODULES, name
     assert len(MODULES) >= 40
 
@@ -78,7 +86,8 @@ def test_importing_the_port_loads_no_jax_and_no_psg_tpu():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "scripts/torch_import_reference_checkpoint.py", *(
+@pytest.mark.parametrize("path", ["chip_smoke.py", "scripts/torch_import_reference_checkpoint.py",
+                                  "tests/torch_mesh_worker.py", *(
     str(p.relative_to(ROOT)) for p in sorted(PORT.rglob("*.py")))])
 def test_no_jax_or_psg_tpu_import_in_source(path):
     roots = _imported_roots(ROOT / path)

@@ -26,6 +26,10 @@ from psg_tpu_torch.nn import layers as tlayers
 from psg_tpu_torch.nn.embeddings import sinusoidal_time_embedding
 from psg_tpu_torch.nn.resize import bilinear_resize
 
+# one intra-op thread: the suite runs several test processes at once, and
+# a pool of one thread per core in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.array(a))

@@ -30,6 +30,10 @@ from psg_tpu_torch.ops.flash_attention import flash_sdpa
 from psg_tpu_torch.ops.fused_norm import fused_group_norm_silu
 from psg_tpu_torch.ops.spatial_xattn import fused_spatial_xattn
 
+# one intra-op thread: the suite runs several test processes at once, and
+# a pool of one thread per core in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.array(a))

@@ -30,6 +30,10 @@ from psg_tpu_torch.diffusion.sampling import (
 )
 from psg_tpu_torch.diffusion.schedule import linspace_f32, make_schedule
 
+# one intra-op thread: the suite runs several test processes at once, and
+# a pool of one thread per core in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 _FIELDS = ("betas", "alphas", "alphas_cumprod", "alphas_cumprod_prev",
            "sqrt_alphas_cumprod", "sqrt_one_minus_alphas_cumprod",
            "sqrt_recip_alphas", "posterior_variance")

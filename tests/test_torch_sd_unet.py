@@ -21,6 +21,10 @@ from psg_tpu_torch.core import tree
 from psg_tpu_torch.models import bridge
 from psg_tpu_torch.models import sd_unet as psd
 
+# one intra-op thread: the suite runs several test processes at once, and
+# a pool of one thread per core in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 JSPEC = jsd.SDUNetSpec.tiny_test(text_dim=20)
 PSPEC = psd.SDUNetSpec.tiny_test(text_dim=20)
 

@@ -26,6 +26,10 @@ from psg_tpu_torch.models import bridge
 from psg_tpu_torch.serve.generator import PokemonGenerator
 from psg_tpu_torch.text.tokenizer import WordPieceTokenizer
 
+# one intra-op thread: the suite runs several test processes at once, and
+# a pool of one thread per core in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 VOCAB = Path(__file__).resolve().parent.parent / "experiments/evidence_r5c_vae/vocab.txt"
 NEGATIVE = "blurry low quality"
 PROMPTS = ["a small green creature with leaves", "a red fire lizard"]

@@ -41,6 +41,10 @@ from psg_tpu_torch.serve.generator import PokemonGenerator, find_tokenizer
 from psg_tpu_torch.text.tokenizer import WordPieceTokenizer
 from psg_tpu_torch.utils.images import pil_to_array
 
+# one intra-op thread: the suite runs several test processes at once, and
+# a pool of one thread per core in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 VOCAB = Path(__file__).resolve().parent.parent / "experiments/evidence_r5c_vae/vocab.txt"
 NEGATIVE = "blurry low quality"
 MAE = 1e-3

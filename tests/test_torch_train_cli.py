@@ -12,10 +12,15 @@ import logging
 import socket
 
 import pytest
+import torch
 
 from psg_tpu_torch.data.synthetic import write_sprite_corpus
 from psg_tpu_torch.serve import app
 from psg_tpu_torch.train import cli
+
+# one intra-op thread: the suite runs several test processes at once, and
+# a pool of one thread per core in each of them oversubscribes the CPU
+torch.set_num_threads(1)
 
 
 def _model_overrides(tmp, corpus):
@@ -209,3 +214,36 @@ def test_data_stats(tmp_path, capsys):
                      "--override=data.image_size=32"]) == 0
     out = capsys.readouterr().out
     assert "total_samples: 5" in out and "image_size: 32" in out
+
+
+def test_mesh_flag_trains_on_a_process_group(tmp_path, offline, monkeypatch, capsys):
+    """``--mesh DATAxMODEL`` trains on a mesh of the processes the
+    environment describes: without a group configured it raises, stage 0
+    has no mesh path, and with a one-rank gloo group from ``PSG_TPU_*``
+    stage 2 trains on the (1, 1) mesh and writes its best."""
+    import torch.distributed as dist
+
+    for var in ("PSG_TPU_COORDINATOR_ADDRESS", "PSG_TPU_NUM_PROCESSES", "PSG_TPU_PROCESS_ID",
+                "MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    corpus = write_sprite_corpus(tmp_path / "corpus", n=7, seed=1, size=64)
+    args = ["--stage", "2", "--mesh", "1x1"] + _train_args(tmp_path, corpus)
+    with pytest.raises(RuntimeError, match="process group"):
+        cli.main(args)
+    with pytest.raises(ValueError, match="stage 0"):
+        cli.main(["--stage", "0", "--mesh", "1x1"] + _train_args(tmp_path, corpus))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    monkeypatch.setenv("PSG_TPU_COORDINATOR_ADDRESS", f"127.0.0.1:{port}")
+    monkeypatch.setenv("PSG_TPU_NUM_PROCESSES", "1")
+    monkeypatch.setenv("PSG_TPU_PROCESS_ID", "0")
+    try:
+        assert cli.main(args) == 0
+        assert dist.is_initialized() and dist.get_world_size() == 1
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    best = tmp_path / "exp" / "cli_diffusion" / "checkpoints" / "diffusion_best_model.ckpt"
+    assert best.exists() and json.loads(best.with_suffix(".json").read_text())["step"] == 2
+    assert "stage 2 complete" in capsys.readouterr().out

@@ -28,6 +28,10 @@ from psg_tpu_torch.ops import flash_attention, fused_norm
 from psg_tpu_torch.train.optim import (build_optimizer, ema_update, make_lr_schedule,
                                        skipped_steps)
 
+# one intra-op thread: the suite runs several test processes at once, and
+# a pool of one thread per core in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 KINDS = ["constant", "cosine", "step", "onecycle", "warmup_cosine"]
 SCHED_KW = dict(total_steps=50, steps_per_epoch=5, step_size_epochs=3, pct_start=0.1,
                 warmup_steps=10, end_factor=0.1)

@@ -31,6 +31,10 @@ from psg_tpu_torch.data.synthetic import write_sprite_corpus
 from psg_tpu_torch.models import bridge
 from psg_tpu_torch.train import stage0_mlm as mlm
 
+# one intra-op thread: the suite runs several test processes at once, and
+# a pool of one thread per core in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 BF16_FACTOR = 2.0
 
 

@@ -53,6 +53,10 @@ from psg_tpu_torch.train import cli
 from psg_tpu_torch.train.stage1_vae import VAETrainer
 from test_torch_fastpath import assert_determined_close, recorded_grads
 
+# one intra-op thread: the suite runs several test processes at once, and
+# a pool of one thread per core in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 CAPTIONS = ["a small green creature with leaves", "a red fire lizard with a flame"]
 LATER_STEP_RTOL = 1e-3      # a fast epoch's steps after the first; see the docstring
 

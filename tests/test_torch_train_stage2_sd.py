@@ -58,6 +58,10 @@ from test_torch_convert import _state_dict
 from test_torch_fastpath import assert_determined_close, recorded_grads
 from test_torch_sampling import _jax_step_draws
 
+# one intra-op thread: the suite runs several test processes at once, and
+# a pool of one thread per core in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 CAPTIONS = ["a small green creature with leaves", "a red fire lizard with a flame"]
 MODES = {"cross_attention_only": (True, True), "decoder_only": (True, False),
          "full": (False, False)}

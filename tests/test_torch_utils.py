@@ -19,6 +19,10 @@ from psg_tpu_torch.utils.attention_viz import attention_probs, plot_attention_ma
 from psg_tpu_torch.utils.profiling import StepTimer, debug_nans, trace
 from psg_tpu_torch.utils.seed import set_seed
 
+# one intra-op thread: the suite runs several test processes at once, and
+# a pool of one thread per core in each of them oversubscribes the CPU
+torch.set_num_threads(1)
+
 
 def test_set_seed_seeds_every_generator():
     def draws():

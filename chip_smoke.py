@@ -155,6 +155,19 @@ prints one JSON line per phase:
                 phase 4's images; (d) ``graft_entry.entry()``, the
                 full-width UNet forward at batch 4.  Step walls, the
                 all-reduce's device ms, launches against the prediction.
+13. ``checkpoints``  async checkpoint writes on phase 8c's full-width
+                stage-3 trainer after the switch (its 9.2 GB full state):
+                (a) a sync and an async file of the same state, one step
+                run under the async write, must have one sha256 (and a
+                light best likewise); (b) one epoch ending in a full best
+                with the switch off and on: seconds ``save`` blocked, the
+                write's own seconds, the step wall with and without a write
+                in flight, the epoch wall, the host's peak RSS and pinned
+                memory, and a real epoch's period projected with phase 8c's
+                disk write; (c) a write that cannot land must raise at
+                ``wait()``.  Its large files are pipes drained (and hashed)
+                as they are written: the machine's disk takes at most 45 GiB
+                of writes a call.  Launches against the prediction.
 Phase 6c runs after phase 7: its frozen VAE and text encoder come from
 phase 7's checkpoint, and serving resolves the pair.
 In phases 4-9 images must be finite and of the right shape, a seed must
@@ -166,15 +179,17 @@ Phase 2 holds GroupNorm+SiLU at the decoder's and the UNet's sites and, at
 batch 1 and 4, at the VAE encoder's (107^2x32 with one channel a group,
 53^2x64, 27^2x128).  Then the card's name and power limit, the ``kernels``
 line (each kernel at its heaviest main-path shape, with its launches summed
-over phases 4-12, and the spatial kernel's gradient: its Function's forward
+over phases 4-13, and the spatial kernel's gradient: its Function's forward
 and backward at phase 7a's main case, launched in phase 7c's steps), and last
 ``{"ok": true, "device": {...}}``.  ``--json PATH`` also writes every
 phase's record to PATH.
 """
 
 import argparse
+import fcntl
 import functools
 import gc
+import hashlib
 import json
 import math
 import os
@@ -183,6 +198,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -2354,14 +2370,18 @@ def phase_fast_full_width(tmp, corpus):
         return validate
 
     def wrap_save(orig, kind):
+        # "blocking_s": until save returns; "s": until the file is on disk (with
+        # PSG_TPU_ASYNC_CKPT=1 the write goes on after save returns)
         def save(self, *args, **kwargs):
             t = time.perf_counter()
             out = orig(self, *args, **kwargs)
+            blocking = time.perf_counter() - t
+            self.wait()
             path = self.best_path if kind == "light best" else self.latest_path()
             if kind == "full state" or out:
                 stages[current["stage"]]["checkpoints"].append(
                     {"kind": kind, "gb": path.stat().st_size / 1e9,
-                     "s": time.perf_counter() - t})
+                     "s": time.perf_counter() - t, "blocking_s": blocking})
             return out
         return save
 
@@ -2929,6 +2949,268 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: async checkpoint writes at full width
+# ---------------------------------------------------------------------------
+
+CKPT_INFLIGHT_STEPS = 6    # steps timed with a full-state write in flight, and without
+CKPT_PIPE_S = 300          # the longest a piped checkpoint file may take
+
+
+def _bytes_written_gb():
+    """Bytes this process has passed to write(), GB (/proc/self/io), or None."""
+    try:
+        io = dict(ln.split(": ") for ln in Path("/proc/self/io").read_text().splitlines())
+        return int(io["wchar"]) / 1e9
+    except (OSError, KeyError, ValueError):
+        return None
+
+
+class _PipedFile:
+    """A checkpoint file whose bytes go through a pipe and not to the disk.
+    The writer writes a temporary file beside its destination (its name:
+    the destination's suffix, ``.<pid>.tmp``) and renames it into place;
+    here that temporary path is made a FIFO first, which a thread drains as
+    the writer writes (and hashes, with ``digest``).  The rename then moves
+    the FIFO into place; the sidecar is a plain file.  Phase 13 passes 40 GB
+    through the writer, and a card machine whose disk takes at most 45 GiB
+    of writes a run (deleted files included) would end the smoke there:
+    phases 1-12 write most of that."""
+
+    def __init__(self, path, digest=True):
+        path = Path(path)
+        fifo = path.with_suffix(f"{path.suffix}.{os.getpid()}.tmp")
+        os.mkfifo(fifo)
+        self.nbytes, self.error = 0, None
+        self._hash = hashlib.sha256() if digest else None
+        self._thread = threading.Thread(target=self._drain, args=(fifo,), daemon=True)
+        self._thread.start()
+
+    def _drain(self, fifo):
+        buf = memoryview(bytearray(16 << 20))
+        try:
+            with open(fifo, "rb", buffering=0) as f:
+                fcntl.fcntl(f, fcntl.F_SETPIPE_SZ, 1 << 20)
+                while n := f.readinto(buf):
+                    self.nbytes += n
+                    if self._hash is not None:
+                        self._hash.update(buf[:n])
+        except BaseException as e:     # reported by result()
+            self.error = e
+
+    def result(self):
+        """(GB, sha256 or None) once the writer closed the file."""
+        self._thread.join(CKPT_PIPE_S)
+        if self._thread.is_alive() or self.error is not None:
+            fail(f"checkpoints: the piped file was not written whole: {self.error!r}")
+        return self.nbytes / 1e9, None if self._hash is None else self._hash.hexdigest()
+
+
+def _pinned_gb(manager):
+    """GB of the host buffers an async manager keeps, and of the pinned
+    blocks PyTorch's host allocator holds (``host_memory_stats``; None where
+    this PyTorch does not count them)."""
+    stats = torch.cuda.host_memory_stats() if hasattr(torch.cuda, "host_memory_stats") else {}
+    held = stats.get("allocated_bytes.current", stats.get("reserved_bytes.current"))
+    return {"manager_buffers_gb": sum(b.nbytes for b in manager._buffers.values()) / 1e9,
+            "host_allocator_gb": None if held is None else held / 1e9}
+
+
+def _sidecar_but_time(path):
+    meta = json.loads(Path(path).with_suffix(".json").read_text())
+    meta.pop("time")
+    return meta
+
+
+def _rss_gb():
+    """This process's resident size, GB (/proc/self/statm)."""
+    return int(Path("/proc/self/statm").read_text().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 1e9
+
+
+class _PeakRss:
+    """The largest resident size seen every 20 ms inside the block (the
+    process's own peak, ``ru_maxrss``, cannot be started anew)."""
+
+    def __enter__(self):
+        self.peak_gb = _rss_gb()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.02):
+            self.peak_gb = max(self.peak_gb, _rss_gb())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak_gb = max(self.peak_gb, _rss_gb())
+
+
+def phase_checkpoints(exp, corpus, vae_checkpoint, diffusion_checkpoint, disk_write):
+    """13. Async checkpoint writes on phase 8c's full-width stage-3 trainer
+    (config/train_config.yaml, batch 32, the bests of phases 7 and 6c),
+    switched to its joint phase: its full state (params, EMA-free, both
+    Adam moments of three groups) is the smoke's largest.  (a) Bytes: the
+    state written sync to one manager and async to another, one training
+    step run while the async write is in flight; the two files' sha256 and
+    their sidecars but ``time`` must be equal; the same for a light best.
+    (b) One epoch (3 steps) ending in a full best write forced by a fresh
+    manager's metric, with ``async_writes`` off and on: seconds ``save``
+    blocked, the write's own seconds up to ``wait()``, the step wall with
+    the write in flight and without one, the epoch wall, the host's peak
+    resident size; and the period of a real epoch (the 898-sprite
+    dataset's train split at batch 32) projected from them and from
+    ``disk_write`` (GB, seconds), phase 8c's sync write of the same state to
+    the disk; the pinned host memory the async manager keeps.  (c) A write
+    into a directory that is a file must raise at ``wait()``.  The large
+    files are pipes (``_PipedFile``), so the write seconds here are the
+    serializer's through a pipe (and SHA-256 in (a)), not the disk's.
+    Counts are set to 0 before the first step and read after the last."""
+    from psg_tpu_torch import ops
+    from psg_tpu_torch.core import checkpoint as ckpt
+    from psg_tpu_torch.core.config import load_config
+    from psg_tpu_torch.data.dataset import split_indices
+    from psg_tpu_torch.train.stage3_final import FinalTrainer
+
+    cfg = load_config(CONFIG, [f"experiment_dir={exp}", f"data.csv_path={corpus[0]}",
+                               f"data.image_dir={corpus[1]}", "training.final_epochs=2",
+                               "training.phase1_epochs=1"])
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_")
+    root = Path(tmp.name) / "phase13"
+    written_before = _bytes_written_gb()
+    release()
+    t0 = time.perf_counter()
+    trainer = FinalTrainer(cfg, vae_checkpoint, diffusion_checkpoint, experiment_name="ckpt",
+                           device="cuda")
+    trainer.switch_to_joint_training()
+    batches = [trainer._batch(b) for b in trainer.train_loader]
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_steps = [0]
+
+    def step():
+        t = time.perf_counter()
+        loss = float(trainer._step(batches[n_steps[0] % len(batches)])["total_loss"])
+        torch.cuda.synchronize()
+        n_steps[0] += 1
+        if not math.isfinite(loss):
+            fail(f"checkpoints: non-finite loss {loss}")
+        return time.perf_counter() - t
+
+    ops.reset_launch_counts()          # this path's counted run starts here
+    step()                             # cuDNN picks its kernels
+    rec = {"init_s": init_s, "process_bytes_written_gb_before": written_before}
+
+    # (a) the same bytes, with a training step under the write
+    same = {}
+    for kind in ("full state", "light best"):
+        sync = ckpt.CheckpointManager(root / "sync", "final", 5, False)
+        asyn = ckpt.CheckpointManager(root / "async", "final", 5, True)
+        state, meta = trainer.state, trainer._meta(1)
+        write = ((lambda m: m.save(state, state.step, 1.0, meta, periodic=False))
+                 if kind == "full state" else
+                 (lambda m: m.save_best_light(state.sample_params, state.step, 1.0, meta)))
+        files = [_PipedFile(m.best_path) for m in (sync, asyn)]
+        t = time.perf_counter()
+        write(sync)
+        sync_s = time.perf_counter() - t
+        t = time.perf_counter()
+        write(asyn)
+        blocked_s = time.perf_counter() - t
+        in_flight = ckpt._pending is not None and ckpt._pending.is_alive()
+        step_s = step()
+        still_in_flight = ckpt._pending is not None and ckpt._pending.is_alive()
+        asyn.wait()
+        write_s = time.perf_counter() - t
+        (gb, sync_sha), (_, async_sha) = (f.result() for f in files)
+        sides = [_sidecar_but_time(m.best_path) for m in (sync, asyn)]
+        same[kind] = {"gb": gb, "sync_s": sync_s, "async_blocked_s": blocked_s,
+                      "async_write_s": write_s, "step_in_flight": in_flight,
+                      "in_flight_after_step": still_in_flight, "step_s": step_s,
+                      "sha256": async_sha, "equal": sync_sha == async_sha
+                      and sides[0] == sides[1]}
+        if not in_flight:
+            fail(f"checkpoints: the async {kind} write ended before the step under it")
+        if not same[kind]["equal"]:
+            fail(f"checkpoints: the async {kind} differs from the sync one: "
+                 f"{sync_sha} {async_sha}, {sides[0] == sides[1]}")
+        shutil.rmtree(root)
+    rec["bytes"] = same
+
+    # (b) the epoch with the switch off and on
+    epochs = {}
+    for async_writes in (False, True):
+        trainer.ckpt = ckpt.CheckpointManager(root / f"epoch_{async_writes}", "final", 5,
+                                              async_writes)
+        piped = _PipedFile(trainer.ckpt.best_path, digest=False)
+        rss_before = _rss_gb()
+        with _PeakRss() as peak:
+            t0 = time.perf_counter()
+            walls = [step() for _ in range(FULL_STEPS)]
+            t = time.perf_counter()
+            trainer.ckpt.save(trainer.state, trainer.state.step, 1.0,
+                              extra_meta=trainer._meta(1), periodic=False)
+            blocked_s = time.perf_counter() - t
+            epoch_s = time.perf_counter() - t0
+            during, after, landed = [], [], None
+            for _ in range(CKPT_INFLIGHT_STEPS):
+                flying = ckpt._pending is not None and ckpt._pending.is_alive()
+                if not flying and landed is None:
+                    landed = time.perf_counter()
+                (during if flying else after).append(step())
+            trainer.ckpt.wait()
+            write_s = (landed or time.perf_counter()) - t
+        after += [step() for _ in range(CKPT_INFLIGHT_STEPS - len(after))]
+        epochs["on" if async_writes else "off"] = {
+            "gb": piped.result()[0], "epoch_steps_s": walls,
+            "save_blocked_s": blocked_s, "write_s": write_s, "epoch_wall_s": epoch_s,
+            "steps_in_flight_s": during, "steps_without_write_s": after,
+            "mean_step_in_flight_s": float(np.mean(during)) if during else None,
+            "mean_step_without_write_s": float(np.mean(after)),
+            "rss_before_gb": rss_before, "peak_rss_gb": peak.peak_gb, "rss_after_gb": _rss_gb(),
+            "pinned": _pinned_gb(trainer.ckpt)}
+        shutil.rmtree(root)
+    off, on = epochs["off"], epochs["on"]
+    if not on["steps_in_flight_s"]:
+        fail(f"checkpoints: the async write ended before a step could run under it: {on}")
+
+    # (c) a write that cannot land raises at wait(), once
+    bad = ckpt.CheckpointManager(root / "bad", "final", 5, True)
+    shutil.rmtree(bad.dir)
+    bad.dir.write_text("a file where the checkpoint directory was")
+    bad.save_best_light({"w": torch.ones(4096, device="cuda")}, 0, 1.0)
+    try:
+        bad.wait()
+    except RuntimeError as e:
+        error = f"{e} <- {type(e.__cause__).__name__}: {e.__cause__}"
+    else:
+        fail("checkpoints: a write into a file's path did not raise at wait()")
+    bad.wait()                         # raised once only
+    tmp.cleanup()
+    launches = ops.launch_counts()     # ... and ends here
+    want = {k: n_steps[0] * v for k, v in predicted_stage3_launches(trainer).items()}
+    if launches != want:
+        fail(f"checkpoints: kernel launches {launches} != predicted {want}")
+
+    # a real epoch: the 898-sprite dataset's train split at batch 32
+    n_train = len(split_indices(898, cfg.data.val_split, cfg.data.test_split)[0])
+    real_steps = n_train // S3_BATCH
+    compute = real_steps * off["mean_step_without_write_s"]
+    disk_gb, disk_s = disk_write
+    rec.update(
+        epochs=epochs, error=error, steps=n_steps[0], launches=launches,
+        predicted_launches=want, process_bytes_written_gb_after=_bytes_written_gb(),
+        projection={"real_epoch_steps": real_steps, "compute_s": compute,
+                    "disk_write_gb": disk_gb, "disk_write_s": disk_s,
+                    "period_off_s": compute + disk_s,
+                    "period_on_s": max(compute + on["save_blocked_s"], disk_s)})
+    del trainer, batches
+    release()
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNEL_LINE = (  # kernel, its heaviest main-path case, source, TPU kernel
@@ -3078,6 +3360,11 @@ def main(argv=None):
         t = time.perf_counter()
         scale = phase_scale_out(exp, corpus, s1["checkpoint"], sprites)
         emit("scale_out", {"card": card, **scale, "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        ck = phase_checkpoints(exp, corpus, s1["checkpoint"], full["checkpoint"], (
+            s3["checkpoints_joint"]["final_best_model.ckpt"] / 1e9,
+            s3["seconds_by_part"]["save_checkpoint joint"]))
+        emit("checkpoints", {"card": card, **ck, "seconds": time.perf_counter() - t})
 
     by_name = {(r["kernel"], r["name"], r["dtype"]): r for r in results}
     kernels = []
@@ -3086,7 +3373,7 @@ def main(argv=None):
         kernels.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaces, "shape": case, "dtype": "bfloat16",
                         "launches": sum(ph["launches"][kname] for ph in (
-                            serve, paths, s1, full, s3, s0, fast, sd, scale)),
+                            serve, paths, s1, full, s3, s0, fast, sd, scale, ck)),
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -46,7 +46,8 @@ def from_jax(tree, name: str = ""):
 def to_jax(tree, name: str = ""):
     """Inverse of ``from_jax``: conv kernels OIHW -> HWIO, lists as dicts
     keyed ``'0'``, ``'1'``, ... (flax's state-dict form), leaves as detached
-    CPU tensors in their own dtype."""
+    views of the tensors on their own device, in their own dtype (they share
+    the tensors' memory: the checkpoint writer copies them)."""
     if tree is None:
         return None
     if isinstance(tree, dict):
@@ -56,7 +57,7 @@ def to_jax(tree, name: str = ""):
     t = tree.detach()
     if name == "w" and t.ndim == 4:  # OIHW -> HWIO
         t = t.permute(2, 3, 1, 0)
-    return t.cpu().contiguous()
+    return t
 
 
 def fit(template, tree, path: str = "params"):

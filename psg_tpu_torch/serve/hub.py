@@ -32,6 +32,8 @@ import logging
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
+from psg_tpu_torch.core.checkpoint import wait_for_writes
+
 log = logging.getLogger(__name__)
 
 VAE_REPO = "GabrieleConte/PokemonVAE"
@@ -89,6 +91,7 @@ def list_candidates(cfg, stage: str,
     3. runs with only a recorded val metric, ascending;
     4. metricless checkpoints (mid-write / old format), newest first.
     """
+    wait_for_writes()     # a best this process is still writing counts once it is whole
     exp = Path(cfg.experiment_dir)
     seen = set()
     out: List[Dict] = []
@@ -123,6 +126,7 @@ def _pair_vae(cfg, diff: Dict, vaes: List[Dict]) -> Optional[Dict]:
     recorded = diff.get("vae_checkpoint")
     if recorded:
         p = Path(recorded)
+        wait_for_writes()
         if p.exists():
             return _candidate(p)
         log.warning("recorded vae_checkpoint %s is gone — falling back", p)

@@ -42,6 +42,7 @@ import argparse
 import sys
 from pathlib import Path
 
+from psg_tpu_torch.core.checkpoint import wait_for_writes
 from psg_tpu_torch.core.config import load_config
 
 
@@ -110,6 +111,7 @@ def main(argv=None) -> int:
         """The named checkpoint, else this experiment's stage path if it exists."""
         if given is not None:
             return given
+        wait_for_writes()     # a stage of this run may still be writing it
         path = stage_ckpt(cfg, name, stage)
         return str(path) if path.exists() else None
 

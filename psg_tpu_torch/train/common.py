@@ -16,7 +16,8 @@ single-process one:
   after each sharded leaf's gradient is reduce-scattered over 'model'
   (``parallel/sharding.py``);
 - rank 0 writes checkpoints, logs and sample grids, and a barrier follows
-  every write.
+  every checkpoint write (with async writes it moves into
+  ``CheckpointManager.wait()``, which every rank calls).
 """
 
 from __future__ import annotations
@@ -52,12 +53,13 @@ def device_batch(batch, device):
 def stage_io(stage_dir: Path, stage: str, mesh=None, device=None):
     """A stage's (checkpoint manager, logger, metrics writer).  On a mesh
     only rank 0 writes and logs, and a barrier follows each checkpoint
-    write; the mesh's ranks must run on ``device``'s type."""
+    write (or each ``wait()`` with async writes, which ``PSG_TPU_ASYNC_CKPT``
+    turns on); the mesh's ranks must run on ``device``'s type."""
     if mesh is not None and rank_device().type != torch.device(device).type:
         raise ValueError(f"the mesh's ranks run on {rank_device()}, not {device}")
     writer = mesh is None or dist.get_rank() == 0
     return (CheckpointManager(stage_dir / "checkpoints", stage, writer=writer,
-                              sync=None if mesh is None else barrier),
+                              sync=None if mesh is None else agree),
             setup_logging(stage_dir / "logs", stage, writer=writer),
             MetricsWriter(stage_dir / "logs", enabled=writer))
 
@@ -68,6 +70,14 @@ def barrier() -> None:
         dist.barrier(device_ids=[torch.cuda.current_device()])
     else:
         dist.barrier()
+
+
+def agree(failed: bool = False) -> bool:
+    """A barrier that also tells every rank whether any rank came with
+    ``failed`` (a checkpoint write that raised on the writer rank)."""
+    flag = torch.tensor([int(failed)], dtype=torch.int32, device=rank_device())
+    dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+    return bool(flag.item())
 
 
 def get_tokenizer(cfg, stage_dir: Path, corpus=None, mesh=None) -> WordPieceTokenizer:

@@ -255,4 +255,5 @@ class FastPath:
                           "-" if val_loss is None else f"{val_loss:.4f}",
                           self.skipped_batches())
         self._final_save(epochs)
+        self.ckpt.wait()     # the files this run reports are on disk
         return self.ckpt.best_path

@@ -34,7 +34,12 @@ import torch
 import torch.nn.functional as F
 
 from psg_tpu_torch.core import tree
-from psg_tpu_torch.core.checkpoint import CheckpointManager, params_subtree, read_checkpoint
+from psg_tpu_torch.core.checkpoint import (
+    CheckpointManager,
+    params_subtree,
+    read_checkpoint,
+    wait_for_writes,
+)
 from psg_tpu_torch.core.config import Config, configure_torch
 from psg_tpu_torch.core.metrics import MetricsWriter, setup_logging
 from psg_tpu_torch.data.caption_augment import caption_variants
@@ -241,6 +246,7 @@ class MLMPretrainer:
         self.log.info("stage 0: %d epochs in %.1f min (best val %.4f)", self.epochs,
                       (time.time() - t_start) / 60.0, best)
         self.metrics.flush()
+        self.ckpt.wait()     # the files this run reports are on disk
         return self.ckpt.best_path
 
 
@@ -248,6 +254,7 @@ def load_text_init(path, text_template):
     """The ``text`` subtree of an MLM (or any) checkpoint mapped onto a
     stage-1 template; the file must exist and its ``text`` fit, or this
     raises."""
+    wait_for_writes()     # this process may still be writing it
     if not Path(path).exists():
         raise FileNotFoundError(f"extra.text_init checkpoint not found: {path}")
     raw = params_subtree(read_checkpoint(path))

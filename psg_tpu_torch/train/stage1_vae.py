@@ -418,6 +418,7 @@ class VAETrainer(FastPath):
         if path is None:
             self.state, meta = self.ckpt.restore(self.state, best=True)
         else:
+            self.ckpt.wait()     # every rank: no write of this run is in flight
             meta = load_metadata(path)
             try:
                 self.state = self.state.from_checkpoint(read_checkpoint(path))
@@ -452,4 +453,5 @@ class VAETrainer(FastPath):
                           time.time() - t0, stats.get("total_loss", 0.0), val_loss,
                           " (best)" if is_best else "", self.skipped_batches())
         self.metrics.flush()
+        self.ckpt.wait()     # the files this run reports are on disk
         return self.ckpt.best_path

@@ -60,6 +60,7 @@ from psg_tpu_torch.core.checkpoint import (
     load_metadata,
     load_params,
     read_checkpoint,
+    wait_for_writes,
 )
 from psg_tpu_torch.core.config import Config, configure_torch
 from psg_tpu_torch.core.metrics import Throughput
@@ -214,6 +215,7 @@ class DiffusionTrainer(FastPath):
                              self.cfg.seed)
             params = template
         else:
+            wait_for_writes()     # this process may still be writing it (--stage all)
             if not Path(vae_checkpoint_path).exists():
                 raise FileNotFoundError(f"VAE checkpoint not found: {vae_checkpoint_path}")
             params = load_params(vae_checkpoint_path, template)
@@ -492,6 +494,7 @@ class DiffusionTrainer(FastPath):
         if path is None:
             self.state, meta = self.ckpt.restore(self.state, best=True)
         else:
+            self.ckpt.wait()     # every rank: no write of this run is in flight
             meta = load_metadata(path)
             raw = read_checkpoint(path)
             try:
@@ -525,4 +528,5 @@ class DiffusionTrainer(FastPath):
                           epoch, time.time() - t0, stats.get("loss", 0.0), val_loss,
                           self.skipped_batches())
         self._final_save(epochs)
+        self.ckpt.wait()     # the files this run reports are on disk
         return self.ckpt.best_path

@@ -52,6 +52,7 @@ from psg_tpu_torch.core.checkpoint import (
     load_metadata,
     load_params,
     read_checkpoint,
+    wait_for_writes,
 )
 from psg_tpu_torch.core.config import Config, configure_torch
 from psg_tpu_torch.core.metrics import Throughput
@@ -224,6 +225,7 @@ class SDDiffusionTrainer:
             self.log.warning("no VAE checkpoint named: VAE/text drawn from seed %d",
                              self.cfg.seed)
         else:
+            wait_for_writes()     # this process may still be writing it (--stage all)
             if not Path(path).exists():
                 raise FileNotFoundError(f"VAE checkpoint not found: {path}")
             vt = load_params(path, vt)
@@ -425,6 +427,7 @@ class SDDiffusionTrainer:
         if path is None:
             self.state, meta = self.ckpt.restore(self.state, best=True)
         else:
+            self.ckpt.wait()     # every rank: no write of this run is in flight
             meta = load_metadata(path)
             try:
                 self.state = self.state.from_checkpoint(read_checkpoint(path))
@@ -455,4 +458,5 @@ class SDDiffusionTrainer:
                           time.time() - t0, stats.get("loss", 0.0), val_loss,
                           self.skipped_batches())
         self.metrics.flush()
+        self.ckpt.wait()     # the files this run reports are on disk
         return self.ckpt.best_path

@@ -513,6 +513,7 @@ class FinalTrainer(FastPath):
         first and then restores its three-group optimizer state with the
         parameters; from a checkpoint without a port optimizer state (a JAX
         one), the parameters and step with a fresh one."""
+        self.ckpt.wait()     # every rank: no write of this run is in flight
         path = Path(path) if path is not None else self.ckpt.best_path
         if not path.exists():
             raise FileNotFoundError(f"no checkpoint at {path}")
@@ -557,4 +558,5 @@ class FinalTrainer(FastPath):
                           epoch, self.phase, time.time() - t0, stats.get("total_loss", 0.0),
                           val_loss, self.skipped_batches())
         self.metrics.flush()
+        self.ckpt.wait()     # the files this run reports are on disk
         return self.ckpt.best_path

@@ -45,6 +45,8 @@ class TrainState:
         return self.ema if self.ema is not None else self.params
 
     def to_checkpoint(self) -> Dict[str, Any]:
+        """The checkpoint tree: its tensors are detached views of the state,
+        on its device, which the checkpoint writer copies."""
         if self.layout is not None:
             return self.layout.unplace(self).to_checkpoint()
         return {"step": np.asarray(self.step, np.int32),
@@ -72,9 +74,8 @@ class TrainState:
 
 
 def _opt_to_checkpoint(state):
-    """Tensors to CPU; plain values as they are."""
-    return tree.map(lambda x: x.detach().cpu() if isinstance(x, torch.Tensor) else x,
-                    state)
+    """Tensors detached; plain values as they are."""
+    return tree.map(lambda x: x.detach() if isinstance(x, torch.Tensor) else x, state)
 
 
 def _opt_from_checkpoint(template, raw):

@@ -716,3 +716,75 @@ def test_one_rank_nccl_mesh_step_equals_the_step_without(card, tmp_path):
     for k in ("params", "ema"):
         for path, r in ref[k].items():
             assert float((got[k][path] - r).abs().max()) <= 1e-6, (k, path)
+
+
+def test_async_checkpoint_snapshot_on_the_card(card, tmp_path):
+    """A state on the card (a channels-last conv kernel, a linear, bf16
+    first moments, the generator) saved async and then updated in place at
+    once, with no host sync between: the file equals a sync file of the
+    state before the update.  The snapshot's host buffers are pinned, and
+    the manager's second save reuses them (same memory) and equals a sync
+    file of the updated state."""
+    from psg_tpu_torch.core import checkpoint as ckpt
+    from psg_tpu_torch.core import tree
+    from psg_tpu_torch.train.state import TrainState
+
+    g = torch.Generator().manual_seed(0)
+    params = {"conv": {"w": torch.randn(64, 32, 3, 3, generator=g).to(card).contiguous(
+                  memory_format=torch.channels_last), "b": torch.randn(64, generator=g).to(card)},
+              "dense": {"w": torch.randn(1024, 2048, generator=g).to(card)}}
+    opt = {"count": 3, "mu": {p: torch.randn_like(t).bfloat16() for p, t in tree.items(params)},
+           "nu": {p: torch.rand_like(t) for p, t in tree.items(params)}}
+    state = TrainState(3, params, opt, torch.Generator(device=card).manual_seed(1))
+    files = {}
+    asyn = ckpt.CheckpointManager(tmp_path / "async", "s", 5, True)
+    for round_ in (0, 1):
+        ref = ckpt.CheckpointManager(tmp_path / f"sync{round_}", "s", 5, False)
+        ref.save(state, state.step, 0.5 - round_ * 0.1, periodic=False)
+        asyn.save(state, state.step, 0.5 - round_ * 0.1, periodic=False)
+        for t in tree.leaves(params) + tree.leaves(opt["mu"]) + tree.leaves(opt["nu"]):
+            t.mul_(1.5).add_(1.0)       # queued on the stream behind the copies
+        opt["count"] += 1
+        asyn.wait()
+        assert asyn.best_path.read_bytes() == ref.best_path.read_bytes(), round_
+        files[round_] = {k: b.data_ptr() for k, b in asyn._buffers.items()}
+        assert all(b.is_pinned() for b in asyn._buffers.values())
+    assert files[0] == files[1] and len(files[0]) == 3 + 3 + 3
+
+
+def test_async_write_error_through_agree_on_nccl(card, tmp_path):
+    """A one-rank NCCL group: ``train.common.agree`` (the barrier a mesh's
+    checkpoint manager meets in ``wait()``) returns whether any rank came
+    with ``failed``, through an all-reduce on the card; a manager on the
+    group with async writes writes a state from the card, and a write that
+    cannot land raises at ``wait()`` once."""
+    import shutil
+    import socket
+
+    import torch.distributed as dist
+
+    from psg_tpu_torch.core import checkpoint as ckpt
+    from psg_tpu_torch.parallel import initialize_distributed
+    from psg_tpu_torch.train.common import agree
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    assert initialize_distributed(f"127.0.0.1:{port}", 1, 0, device="cuda", timeout_s=120)
+    try:
+        assert dist.get_backend() == "nccl"
+        assert agree(False) is False and agree(True) is True
+        ok = ckpt.CheckpointManager(tmp_path / "ok", "s", 5, True, sync=agree)
+        ok.save_best_light({"w": torch.arange(4096.0, device=card)}, 0, 1.0)
+        ok.wait()
+        raw = ckpt.read_checkpoint(ok.best_path)["params"]["w"]
+        assert torch.equal(raw, torch.arange(4096.0).bfloat16())     # a light best is bf16
+        bad = ckpt.CheckpointManager(tmp_path / "bad", "s", 5, True, sync=agree)
+        shutil.rmtree(bad.dir)
+        bad.dir.write_text("a file where the checkpoint directory was")
+        bad.save_best_light({"w": torch.ones(4096, device=card)}, 0, 1.0)
+        with pytest.raises(RuntimeError, match="async checkpoint write failed"):
+            bad.wait()
+        bad.wait()                          # raised once only
+    finally:
+        dist.destroy_process_group()

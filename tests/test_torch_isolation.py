@@ -86,8 +86,8 @@ def test_importing_the_port_loads_no_jax_and_no_psg_tpu():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
-@pytest.mark.parametrize("path", ["chip_smoke.py", "scripts/torch_import_reference_checkpoint.py",
-                                  "tests/torch_mesh_worker.py", *(
+@pytest.mark.parametrize("path", ["chip_smoke.py", "tests/torch_mesh_worker.py", *(
+    str(p.relative_to(ROOT)) for p in sorted((ROOT / "scripts").glob("torch_*.py"))), *(
     str(p.relative_to(ROOT)) for p in sorted(PORT.rglob("*.py")))])
 def test_no_jax_or_psg_tpu_import_in_source(path):
     roots = _imported_roots(ROOT / path)

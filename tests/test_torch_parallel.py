@@ -21,6 +21,7 @@ two ranks with JAX's draws against ``DiffusionTrainer(mesh=make_mesh(
 data=2))``'s jitted step; and JAX's ``load_params`` reading the checkpoints
 the meshes wrote."""
 
+import json
 import os
 import socket
 import subprocess
@@ -364,6 +365,47 @@ def test_mesh_checkpoint_equals_single_process_and_jax_reads_it(two_ranks, four_
                                                           two_ranks["jax_template"])))))
         want = dict(tree.items(bridge.from_jax(mine[name])))
         assert all(torch.equal(read[p], want[p]) for p in want), name
+
+
+def test_mesh_async_checkpoint_equals_the_sync_one(two_ranks):
+    """(2, 1): the best written with async writes (rank 0's thread, the
+    barrier in ``wait()``) is the sync best byte for byte, and its sidecar
+    apart from the time; every rank restores from it the state it saved."""
+    ranks = two_ranks["ranks"]["stage2_dp"]
+    sync, asyn = Path(ranks[0]["best"]), Path(ranks[0]["async_best"])
+    assert sync != asyn and sync.read_bytes() == asyn.read_bytes()
+    metas = [json.loads(p.with_suffix(".json").read_text()) for p in (sync, asyn)]
+    assert all(m.pop("time") for m in metas) and metas[0] == metas[1]
+    for got in ranks:
+        assert got["restored"]["step"] == got["live"]["step"] == 1
+        for part in ("params", "ema", "mu"):
+            want, back = got["live"][part], got["restored"][part]
+            assert want.keys() == back.keys()
+            assert all(torch.equal(want[p], back[p]) for p in want), part
+            assert all(torch.equal(back[p], ranks[0]["restored"][part][p]) for p in back)
+
+
+def test_mesh_async_write_error_raises_on_every_rank(two_ranks):
+    """(2, 1): a background write that fails on rank 0 (its checkpoint
+    directory is a file) raises on both ranks at the next save, and a second
+    one at ``wait()``, once each: the ranks meet in ``wait()`` and learn of
+    the failure there, so none is left in a collective until its timeout.
+    A sync write that fails on rank 0 raises on both at that save."""
+    got = [r["failed_write"] for r in two_ranks["ranks"]["stage2_dp"]]
+    for rank, err in enumerate(got):
+        assert err["first"] is None and err["second"] is None and err["again"] is None, err
+        for where in ("save", "wait"):
+            assert err[where].startswith("RuntimeError: async checkpoint write failed"), \
+                (rank, where, err)
+    assert got[0]["save"].endswith("<- FileExistsError"), got[0]
+    assert got[1]["save"] == got[1]["wait"] == ("RuntimeError: async checkpoint write "
+                                                "failed on the writer rank <- NoneType"), got[1]
+    # a sync write that fails on rank 0 raises there at once, and on rank 1
+    # at the barrier after it, each time
+    for key in ("sync", "sync_again"):
+        assert got[0][key].startswith("FileExistsError"), got[0]
+        assert got[1][key] == ("RuntimeError: checkpoint write failed on the writer "
+                               "rank <- NoneType"), got[1]
 
 
 def test_tp_resume_reshards(four_ranks):

@@ -146,11 +146,59 @@ def check(fn):
 
 @check
 def stage2_dp(root, rank):
-    """(2, 1): a stage-2 step, validation, then the best checkpoint."""
+    """(2, 1): a stage-2 step, validation, then the best checkpoint; the
+    same best again with async writes (rank 0 writes, every rank waits),
+    which every rank then restores; then async writes that fail on rank 0,
+    whose error every rank must raise, at the next save and at ``wait()``,
+    once, and a sync write that fails on rank 0, which every rank raises at
+    that save."""
+    import shutil
+
+    from psg_tpu_torch.core.checkpoint import CheckpointManager
+    from psg_tpu_torch.train.common import agree
+
     t = stage2_trainer(root, "exp_dp", mesh_of(2, 1))
     out = stage2_step(t, global_batch(t.tokenizer))
     assert t.save_checkpoint(0, 0.5)
     out["best"] = str(t.ckpt.best_path)
+    t.ckpt = CheckpointManager(root / "exp_dp_async", t.STAGE, 5, True, writer=rank == 0,
+                               sync=agree)
+    assert t.save_checkpoint(0, 0.5)
+    t.ckpt.wait()
+    out["async_best"] = str(t.ckpt.best_path)
+    live = {"params": snapshot(t.state.params), "ema": snapshot(t.state.ema),
+            "mu": snapshot(t.state.opt_state["groups"]["unet"]["mu"]), "step": t.state.step}
+    t.state = t._fresh_state(tree.map(torch.zeros_like, t.state.params), step=0,
+                             rng=t.state.rng)
+    t.load_checkpoint()
+    out["restored"] = {"params": snapshot(t.state.params), "ema": snapshot(t.state.ema),
+                       "mu": snapshot(t.state.opt_state["groups"]["unet"]["mu"]),
+                       "step": t.state.step}
+    out["live"] = live
+
+    def failing(name, async_writes):
+        bad = root / f"exp_dp_{name}{rank}"
+        m = CheckpointManager(bad, t.STAGE, 5, async_writes, writer=rank == 0, sync=agree)
+        if rank == 0:                  # rank 0's writes cannot land: its directory is a file
+            shutil.rmtree(bad)
+            bad.write_text("a file where the checkpoint directory was")
+        return m
+
+    def raised(fn):
+        try:
+            fn()
+        except Exception as e:
+            return f"{type(e).__name__}: {str(e)[:48]} <- {type(e.__cause__).__name__}"
+        return None
+
+    t.ckpt = failing("bad", True)
+    out["failed_write"] = {"first": raised(lambda: t.save_checkpoint(0, 0.4)),
+                           "save": raised(lambda: t.save_checkpoint(0, 0.3)),
+                           "second": raised(lambda: t.save_checkpoint(0, 0.2)),
+                           "wait": raised(t.ckpt.wait), "again": raised(t.ckpt.wait)}
+    t.ckpt = failing("bad_sync", False)
+    out["failed_write"].update(sync=raised(lambda: t.save_checkpoint(0, 0.4)),
+                               sync_again=raised(lambda: t.save_checkpoint(0, 0.3)))
     return out
 
 

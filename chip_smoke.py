@@ -168,6 +168,19 @@ prints one JSON line per phase:
                 ``wait()``.  Its large files are pipes drained (and hashed)
                 as they are written: the machine's disk takes at most 45 GiB
                 of writes a call.  Launches against the prediction.
+14. ``eval_scripts``  the evaluation and evidence scripts
+                (``scripts/torch_eval_conditioning.py``,
+                ``torch_recipe_sweep.py``, ``torch_ddim_evidence.py``) at
+                full width on phase 6c's sprites and the checkpoints of
+                phases 7c, 6c and 8c: (a) the eval over two seeds with the
+                stamp, then a fresh ``build_generator`` must resolve the
+                stamped checkpoint, and the eval at guidance 2 with the
+                ``mean`` negative; (b) ``init=retrieval-loo`` and
+                ``prompts=paraphrase``, which do not stamp; (c) a two-recipe
+                sweep; (d) the DDIM grid from the stage-3 bundle; (e) the
+                eval at the tiny config on the card against the CPU with the
+                same draws.  Each request's wall and launches against the
+                prediction, each sub-phase's peak memory and bytes written.
 Phase 6c runs after phase 7: its frozen VAE and text encoder come from
 phase 7's checkpoint, and serving resolves the pair.
 In phases 4-9 images must be finite and of the right shape, a seed must
@@ -179,7 +192,7 @@ Phase 2 holds GroupNorm+SiLU at the decoder's and the UNet's sites and, at
 batch 1 and 4, at the VAE encoder's (107^2x32 with one channel a group,
 53^2x64, 27^2x128).  Then the card's name and power limit, the ``kernels``
 line (each kernel at its heaviest main-path shape, with its launches summed
-over phases 4-13, and the spatial kernel's gradient: its Function's forward
+over phases 4-14, and the spatial kernel's gradient: its Function's forward
 and backward at phase 7a's main case, launched in phase 7c's steps), and last
 ``{"ok": true, "device": {...}}``.  ``--json PATH`` also writes every
 phase's record to PATH.
@@ -3211,6 +3224,343 @@ def phase_checkpoints(exp, corpus, vae_checkpoint, diffusion_checkpoint, disk_wr
 
 
 # ---------------------------------------------------------------------------
+# phase 14: the evaluation and evidence scripts
+# ---------------------------------------------------------------------------
+
+EVAL_N = 8              # captions an eval run scores (the JAX script's default)
+EVAL_SCORE_TOL = 2e-3   # the conditioning scores' bound (tests/test_torch_eval_scripts.py)
+SWEEP = ("g=2.0,steps=10,restarts=1", "g=3.5,resc=0.7,lo=0.1,hi=0.8,steps=10,restarts=1")
+
+
+def _script(rel):
+    """A script of the checkout as a module (registered in ``sys.modules``:
+    its dataclasses look their module up there)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(Path(rel).stem, ROOT / rel)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def request_launches(gen, method, n_prompts, kw, index_encodes):
+    """Kernel launches of one public request, from the model's structure:
+    its chain and each restart pass (a text encode, the UNet evaluations and
+    a decode; a restart also an encode), a VAE encode and a query encode a
+    prompt when retrieval seeds it, and ``index_encodes`` when the
+    retrieval index is built inside it.  Fused CFG doubles a UNet call's
+    rows, not its launches."""
+    restarts = kw.get("restarts", 0)
+    seeded = method == "generate_from_text_retrieval" or kw.get("init") == "retrieval"
+    evals = unet_evals(gen, kw.get("sampler") or gen.sampler_name, kw["num_inference_steps"])
+    return predicted_launches(gen, evals * (1 + restarts),
+                              text_encodes=(1 + restarts + index_encodes
+                                            + (n_prompts if seeded else 0)),
+                              encodes=int(seeded) + restarts, decodes=1 + restarts)
+
+
+def _watch_requests(gen, requests, expected, corpus_size):
+    """Time each public request the scripts make of ``gen`` (ending in a
+    sync) and hold its launches to ``request_launches``."""
+    from psg_tpu_torch import ops
+
+    for method in ("generate_batch", "generate_from_text_retrieval"):
+        orig = getattr(gen, method)
+
+        def watched(descriptions, _orig=orig, _method=method, **kw):
+            batch = _method == "generate_batch"
+            seeded = not batch or kw.get("init") == "retrieval"
+            index = math.ceil(corpus_size / 64) if seeded and gen._retr is None else 0
+            n = len(descriptions) if batch else 1
+            want = request_launches(gen, _method, n, kw, index)
+            before = ops.launch_counts()
+            t = time.perf_counter()
+            out = _orig(descriptions, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            got = {k: v - before[k] for k, v in ops.launch_counts().items()}
+            for k in expected:
+                expected[k] += want[k]
+            kind = (f"{_method} n={n} {kw.get('sampler') or gen.sampler_name}"
+                    f"@{kw['num_inference_steps']} g={gen.guidance_scale}"
+                    f" restarts={kw.get('restarts', 0)}"
+                    + (f" init={kw.get('init', 'prior')}" if batch else " loo")
+                    + (" (index built)" if index else ""))
+            requests.append({"request": kind, "wall_s": wall, "launches": got,
+                             "predicted": want})
+            if got != want:
+                fail(f"{kind}: kernel launches {got} != predicted {want}")
+            return out
+
+        setattr(gen, method, watched)
+
+
+def _check_images(name, images, size, n):
+    arr = np.asarray(images, np.float32)
+    if arr.shape != (n, size, size, 3) or not np.isfinite(arr).all():
+        fail(f"{name}: bad images {arr.shape}")
+
+
+def _check_report(name, rep, n):
+    keys = {"n", "retrieval_at_1", "chance_retrieval", "margin", "checkpoint", "sampler",
+            "guidance", "negative", "init", "seed", "grid"}
+    if not keys <= rep.keys() or rep["n"] != n or not 0.0 <= rep["retrieval_at_1"] <= 1.0:
+        fail(f"{name}: bad report {sorted(rep)}")
+    if not Path(rep["grid"]).is_file() or not Path(rep["grid"]).with_suffix(".txt").is_file():
+        fail(f"{name}: no grid beside the report")
+
+
+def phase_eval_scripts(exp, corpus, diffusion_checkpoint):
+    """14. The evaluation and evidence scripts at full width
+    (config/train_config.yaml: bf16, BERT-base, the full UNet and VAE,
+    215x215) on phase 6c's 128 sprites, serving experiment "smoke": phase
+    7c's stage-1 best, 6c's stage-2 best and 8c's final bundle.  Their
+    functions run in-process on generators from ``build_generator``:
+    (a) ``torch_eval_conditioning`` dpmpp@25 at guidance 0 over seeds
+    1234 and 1235 with ``stamp=1``; a fresh ``build_generator`` then must
+    resolve the stamped checkpoint, its hub candidate carrying the report's
+    retrieval@1; on it dpmpp@25 at guidance 2.0 with the ``mean`` negative.
+    (b) dpmpp@10 with ``init=retrieval-loo`` (retrieval and the VAE
+    encoder) and with ``prompts=paraphrase``; neither stamps.  (c)
+    ``torch_recipe_sweep`` with the two ``SWEEP`` recipes.  (d)
+    ``torch_ddim_evidence`` DDIM@20 on its 8 ``PROMPTS``, served from the
+    final bundle (``extra.serve_prefer_final``).  Each request's launches
+    are held to ``request_launches``; counts are set to 0 before the first
+    build and read after (d)."""
+    from psg_tpu_torch import ops
+    from psg_tpu_torch.data.dataset import PokemonDataset
+    from psg_tpu_torch.serve import hub
+    from psg_tpu_torch.serve.app import build_generator
+
+    ev = _script("scripts/torch_eval_conditioning.py")
+    sw = _script("scripts/torch_recipe_sweep.py")
+    dd = _script("scripts/torch_ddim_evidence.py")
+    out = Path(exp) / "phase14"
+    overrides = [f"experiment_dir={exp}", f"data.csv_path={corpus[0]}",
+                 f"data.image_dir={corpus[1]}"]
+    ds = PokemonDataset(*corpus, image_size=215)
+    side = Path(diffusion_checkpoint).with_suffix(".json")
+    requests, expected, subs, gens = [], {k: 0 for k in ops.launch_counts()}, {}, {}
+    release()
+
+    def build(*, extra=(), **kw):
+        t = time.perf_counter()
+        gen = build_generator(CONFIG, "smoke", overrides + list(extra), device="cuda", **kw)
+        torch.cuda.synchronize()
+        if (gen.cfg.model.compute_dtype, gen.cfg.data.image_size) != ("bfloat16", 215):
+            fail(f"{CONFIG.name} is not the full-width bf16 configuration")
+        if gen.negative == "mean":    # one encode of the dataset's captions
+            want = predicted_launches(gen, 0, decodes=0)
+            for k in expected:
+                expected[k] += want[k]
+        _watch_requests(gen, requests, expected, len(ds))
+        return gen, time.perf_counter() - t
+
+    def timed(runs, label, fn):
+        t = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        runs.append({"run": label, "wall_s": time.perf_counter() - t})
+        return result
+
+    def sub(name, fn):
+        first, before, wrote = len(requests), ops.launch_counts(), _bytes_written_gb()
+        want_before = dict(expected)
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        rec = fn()
+        torch.cuda.synchronize()
+        subs[name] = {**rec, "wall_s": time.perf_counter() - t,
+                      "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "bytes_written_gb": _bytes_written_gb() - wrote,
+                      "requests": requests[first:],
+                      "launches": {k: v - before[k] for k, v in ops.launch_counts().items()},
+                      "predicted": {k: v - want_before[k] for k, v in expected.items()}}
+        if subs[name]["launches"] != subs[name]["predicted"]:
+            fail(f"phase 14{name}: launches {subs[name]['launches']} "
+                 f"!= predicted {subs[name]['predicted']}")
+
+    def stamp_and_guidance():
+        gen, build_s = build(sampler="dpmpp", guidance=0.0, negative="zero")
+        if (gen.loaded, gen.diffusion_checkpoint) != ("pair", str(diffusion_checkpoint)):
+            fail(f"eval: served {gen.loaded} {gen.diffusion_checkpoint}, not the stage-2 pair")
+        opts = ev.parse_args(["smoke", str(EVAL_N), "25", "dpmpp", "0.0",
+                              str(out / "eval.json"), "seeds=1234,1235", "stamp=1"])
+        captions, names, real = ev.eval_set(ds, opts)
+        runs, reports = [], []
+        for seed, path, stamp in ev.seed_outputs(opts):
+            imgs, rep = timed(runs, f"eval dpmpp@25 g=0 seed={seed} stamp={stamp}",
+                              lambda: ev.evaluate(gen, captions, real, names, opts, seed,
+                                                  path, stamp))
+            _check_images("eval", imgs, 215, EVAL_N)
+            _check_report("eval", rep, EVAL_N)
+            reports.append(rep)
+        meta = json.loads(side.read_text())
+        recipe = meta.get("eval", {}).get("recipe", {})
+        if (meta.get("eval", {}).get("retrieval_at_1") != reports[0]["retrieval_at_1"]
+                or (recipe.get("seed"), recipe.get("n"), recipe.get("prompts"))
+                != (1234, EVAL_N, "dataset")):
+            fail(f"eval: the sidecar's stamp {meta.get('eval')} is not seed 1234's report")
+        if not (out / "eval_seed1235.json").is_file():
+            fail("eval: no report for the second seed")
+        gens["zero"] = gen
+        # a fresh build resolves the stamped checkpoint, ranked by its stamp
+        gen2, build2_s = build(sampler="dpmpp", guidance=2.0, negative="mean")
+        cand = hub.list_candidates(gen2.cfg, "diffusion", "smoke")[0]
+        if (gen2.diffusion_checkpoint != str(diffusion_checkpoint) or gen2.loaded != "pair"
+                or cand["path"] != Path(diffusion_checkpoint)
+                or cand["eval"] != reports[0]["retrieval_at_1"]):
+            fail(f"eval: a fresh build served {gen2.diffusion_checkpoint} ({gen2.loaded}), "
+                 f"candidate {cand['path']} eval {cand['eval']}")
+        opts2 = ev.parse_args(["smoke", str(EVAL_N), "25", "dpmpp", "2.0",
+                               str(out / "eval_g2.json"), "0", "mean"])
+        imgs, rep = timed(runs, "eval dpmpp@25 g=2.0 negative=mean",
+                          lambda: ev.evaluate(gen2, captions, real, names, opts2, 1234,
+                                              opts2.out))
+        _check_images("eval g=2", imgs, 215, EVAL_N)
+        _check_report("eval g=2", rep, EVAL_N)
+        gens["mean"] = gen2
+        return {"build_s": [build_s, build2_s], "runs": runs,
+                "retrieval_at_1": [r["retrieval_at_1"] for r in reports + [rep]],
+                "stamped": meta["eval"], "resolved": str(cand["path"])}
+
+    def retrieval_and_paraphrase():
+        gen, runs, stamps = gens["zero"], [], side.read_text()
+        res = {}
+        for label, flag in (("loo", "init=retrieval-loo"), ("paraphrase", "prompts=paraphrase")):
+            opts = ev.parse_args(["smoke", str(EVAL_N), "10", "dpmpp", "0.0",
+                                  str(out / f"eval_{label}.json"), flag, "stamp=1"])
+            captions, names, real = ev.eval_set(ds, opts)
+            imgs, rep = timed(runs, f"eval dpmpp@10 {flag}",
+                              lambda: ev.evaluate(gen, captions, real, names, opts, 1234,
+                                                  opts.out, True))
+            _check_images(label, imgs, 215, EVAL_N)
+            _check_report(label, rep, EVAL_N)
+            res[label] = rep["retrieval_at_1"]
+        rep_keys = set(rep)
+        if side.read_text() != stamps:
+            fail("a retrieval-seeded or paraphrase eval stamped the checkpoint")
+        if not {"family_retrieval_at_1", "family_chance", "prompts"} <= rep_keys:
+            fail(f"paraphrase: no family count in {sorted(rep_keys)}")
+        return {"runs": runs, "retrieval_at_1": res}
+
+    def recipe_sweep():
+        opts = ev.parse_args(["smoke", str(EVAL_N)])
+        captions, names, real = ev.eval_set(ds, opts)
+        runs = []
+        report = timed(runs, "recipe_sweep " + " ".join(SWEEP), lambda: sw.sweep(
+            gens["mean"], captions, real, names, [sw.parse_recipe(r) for r in SWEEP],
+            name="smoke", n=EVAL_N, seed=1234, negative="mean", out=out / "sweep.json"))
+        if len(report["ranked"]) != len(SWEEP) or not (out / "sweep.json").is_file():
+            fail(f"recipe sweep: {len(report['ranked'])} ranked rows")
+        return {"runs": runs, "ranked": report["ranked"]}
+
+    def ddim_evidence():
+        gens.clear()
+        release()
+        gen, build_s = build(schedule="auto", sampler="ddim", guidance=0.0, negative="zero",
+                             extra=["extra.serve_prefer_final=true"])
+        if gen.loaded != "final-bundle":
+            fail(f"ddim evidence: served {gen.loaded}, not the stage-3 final bundle")
+        runs = []
+        imgs = timed(runs, "ddim_evidence ddim@20 PROMPTS", lambda: dd.render(
+            gen, dd.PROMPTS, steps=20, out=out / "ddim.png"))
+        _check_images("ddim evidence", imgs, 215, len(dd.PROMPTS))
+        lines = (out / "ddim.txt").read_text().splitlines()
+        if len(lines) != len(dd.PROMPTS) or not (out / "ddim.png").is_file():
+            fail("ddim evidence: no captioned grid")
+        return {"build_s": build_s, "runs": runs, "served": gen.diffusion_checkpoint,
+                "image_std": float(np.std(imgs))}
+
+    ops.reset_launch_counts()   # this path's counted run starts here
+    sub("a", stamp_and_guidance)
+    sub("b", retrieval_and_paraphrase)
+    sub("c", recipe_sweep)
+    sub("d", ddim_evidence)
+    launches = ops.launch_counts()   # ... and ends here
+    if launches != expected or min(launches.values()) == 0:
+        fail(f"phase 14 launches {launches} != predicted {expected}")
+    release()
+    return {"sub_phases": subs, "launches": launches, "predicted": expected, "ev": ev}
+
+
+def _inject_draws(gen):
+    """Give every request of ``gen`` draws from ``np.random.RandomState(seed)``
+    (the prior, or an init's encoder and lerp noises, and each restart
+    pass's pair) made on the host and moved to its device: the card and the
+    CPU then start from the same numbers."""
+    seeds, make_generator, serve = [], gen._generator, gen._serve
+    shape = (gen.latent_size, gen.latent_size, gen.cfg.model.latent_dim)
+
+    def generator(seed):
+        seeds.append(seed)
+        return make_generator(seed)
+
+    def serve_with_draws(ids, mask, generator, *, num, init_images=None, restarts=0, **kw):
+        rs = np.random.RandomState(seeds[-1])
+
+        def draw():
+            return torch.from_numpy(rs.randn(num, *shape).astype(np.float32)).to(gen.device)
+
+        draws = {"prior": draw()} if init_images is None else {"init": (draw(), draw())}
+        draws["restarts"] = [(draw(), draw()) for _ in range(restarts)]
+        return serve(ids, mask, generator, num=num, init_images=init_images,
+                     restarts=restarts, draws=draws, **kw)
+
+    gen._generator, gen._serve = generator, serve_with_draws
+
+
+def phase_eval_card_vs_cpu(ev, exp, corpus):
+    """14e. ``torch_eval_conditioning``'s function at the tiny config (64x64,
+    fp32, dpmpp@4, guidance 2.0, the ``mean`` negative) on the card and on
+    the CPU with the same draws, from the prior and with
+    ``init=retrieval-loo``: images within ``E2E_MAE``, the score matrices
+    within ``EVAL_SCORE_TOL`` and the same best match in every row whose
+    top two scores are further apart than twice that."""
+    from psg_tpu_torch.data.dataset import PokemonDataset
+    from psg_tpu_torch.eval.metrics import pairwise_conditioning_scores
+    from psg_tpu_torch.serve.generator import PokemonGenerator
+    from psg_tpu_torch.text.tokenizer import WordPieceTokenizer
+
+    cfg = tiny_config()
+    cfg.data.csv_path, cfg.data.image_dir = str(corpus[0]), str(corpus[1])
+    kw = dict(tokenizer=WordPieceTokenizer.from_vocab_file(VOCAB), sampler="dpmpp",
+              guidance_scale=2.0, negative="mean")
+    cpu = PokemonGenerator(cfg, device="cpu", **kw)
+    card = PokemonGenerator(cfg, device="cuda", params=cpu.params, **kw)
+    for gen in (cpu, card):
+        _inject_draws(gen)
+    ds = PokemonDataset(*corpus, image_size=64)
+    out, rec = Path(exp) / "phase14" / "tiny", {"bound": E2E_MAE, "score_bound": EVAL_SCORE_TOL}
+    for mode, flags in (("prior", []), ("retrieval-loo", ["init=retrieval-loo"])):
+        got = {}
+        for name, gen in (("cpu", cpu), ("card", card)):
+            opts = ev.parse_args(["tiny", str(EVAL_N), "4", "dpmpp", "2.0",
+                                  str(out / name / f"{mode}.json"), "0", "mean", *flags])
+            captions, names, real = ev.eval_set(ds, opts)
+            imgs, rep = ev.evaluate(gen, captions, real, names, opts, 5, opts.out)
+            got[name] = (np.stack(imgs), pairwise_conditioning_scores(imgs, real), rep)
+        (a, sa, ra), (b, sb, rb) = got["card"], got["cpu"]
+        mae = float(np.abs(a - b).mean())
+        top2 = np.sort(sb, axis=1)[:, -2:]
+        sure = top2[:, 1] - top2[:, 0] > 2 * EVAL_SCORE_TOL
+        rec[mode] = {"image_mae": mae, "image_max_abs": float(np.abs(a - b).max()),
+                     "score_max_abs": float(np.abs(sa - sb).max()),
+                     "decisive_rows": int(sure.sum()),
+                     "retrieval_at_1": {"card": ra["retrieval_at_1"], "cpu": rb["retrieval_at_1"]}}
+        if a.shape != (EVAL_N, 64, 64, 3) or not np.isfinite(a).all():
+            fail(f"tiny eval {mode}: bad images {a.shape}")
+        if not mae <= E2E_MAE:
+            fail(f"tiny eval {mode}: card vs CPU image MAE {mae} > {E2E_MAE}")
+        if not np.abs(sa - sb).max() <= EVAL_SCORE_TOL:
+            fail(f"tiny eval {mode}: scores differ by {np.abs(sa - sb).max()}")
+        if not np.array_equal(sa.argmax(1)[sure], sb.argmax(1)[sure]):
+            fail(f"tiny eval {mode}: a decisive row's best match moved")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 
 
 KERNEL_LINE = (  # kernel, its heaviest main-path case, source, TPU kernel
@@ -3365,6 +3715,11 @@ def main(argv=None):
             s3["checkpoints_joint"]["final_best_model.ckpt"] / 1e9,
             s3["seconds_by_part"]["save_checkpoint joint"]))
         emit("checkpoints", {"card": card, **ck, "seconds": time.perf_counter() - t})
+        t = time.perf_counter()
+        evs = phase_eval_scripts(exp, corpus, full["checkpoint"])
+        ev_tiny = phase_eval_card_vs_cpu(evs.pop("ev"), exp, corpus)
+        emit("eval_scripts", {"card": card, **evs, "card_vs_cpu": ev_tiny,
+                              "seconds": time.perf_counter() - t})
 
     by_name = {(r["kernel"], r["name"], r["dtype"]): r for r in results}
     kernels = []
@@ -3373,7 +3728,8 @@ def main(argv=None):
         kernels.append({"name": kname, "route": "cuda", "source": source,
                         "replaces": replaces, "shape": case, "dtype": "bfloat16",
                         "launches": sum(ph["launches"][kname] for ph in (
-                            serve, paths, s1, full, s3, s0, fast, sd, scale, ck)),
+                            serve, paths, s1, full, s3, s0, fast, sd, scale, ck,
+                            evs)),
                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],

@@ -229,6 +229,17 @@ def load_config(path: Union[str, Path, None] = None, overrides=None) -> Config:
     return apply_overrides(cfg, overrides)
 
 
+TRAIN_CONFIG = Path(__file__).resolve().parents[2] / "config" / "train_config.yaml"
+
+
+def dataset_overrides() -> list:
+    """``data.csv_path=`` and ``data.image_dir=`` overrides naming the
+    dataset of ``config/train_config.yaml``: the corpus the evaluation
+    scripts read unless their own overrides name another."""
+    data = load_config(TRAIN_CONFIG).data
+    return [f"data.csv_path={data.csv_path}", f"data.image_dir={data.image_dir}"]
+
+
 def configure_torch(cfg: Config) -> None:
     """Process-level PyTorch setup for an entry point.
 

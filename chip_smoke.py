@@ -7,11 +7,12 @@ Run from the root of a checkout on a machine with a CUDA card and nvcc.  It
 imports nothing of JAX or psg_tpu, exits non-zero at the first failure, and
 prints one JSON line per phase:
 
-1. ``build``    the card's name and power limit; the three kernel libraries
+1. ``build``    the card's name and power limit; the four kernel libraries
                 built from ``psg_tpu_torch/csrc/`` (one nvcc each, in parallel),
-                with ptxas's register and spill lines.  The bf16 flash and
-                spatial kernels must hold tensor-core instructions (HMMA/HGMMA,
-                counted in ``cuobjdump -sass``) and spill nothing.
+                with ptxas's register and spill lines.  The bf16 kernels must
+                hold tensor-core instructions (counted in ``cuobjdump -sass``:
+                HGMMA in the flash forward, HMMA or HGMMA in the flash
+                backward and the spatial kernel) and spill nothing.
 2. ``kernels_vs_plain``  every kernel against its plain PyTorch version on
                 the card at the full-width main path's shapes, in fp32 (TF32
                 off) and bf16: max error against the stated tolerance, and
@@ -26,7 +27,13 @@ prints one JSON line per phase:
                 calls, so no host time is in them; ``call_ms`` is the
                 wrapper's eager time per call, host included, and
                 ``host_bound`` marks a case whose eager call takes over 1.5x
-                its device time.
+                its device time.  Then the flash backward kernel at the main
+                path's training shapes (``FLASH_BWD_CASES``) against
+                ``sdpa_backward_plain`` and autograd of ``sdpa_plain``: its
+                device time beside its bound (five products), the plain
+                autograd backward's and, as a yardstick,
+                ``F.scaled_dot_product_attention``'s backward (each a CUDA
+                graph of forward and backward less one of the forward).
 3. ``e2e_card_vs_cpu``  the whole text -> sprite chain at a tiny config in
                 fp32, the same parameters and draws on the card (kernels) and
                 on the CPU (plain versions): DDIM and DPM-Solver++ from one
@@ -50,9 +57,10 @@ prints one JSON line per phase:
                 turn into 8 UNet evaluations), and one request from a second
                 generator whose CFG negative is the corpus's mean caption.
 6. ``train``   stage-2 training.  (a) GN+SiLU and flash attention through
-                their autograd Functions (kernel forward, the plain version's
-                autograd backward) against plain autograd at the UNet's
-                training shapes at batch 32, bf16 and fp32.  (b) A tiny trainer
+                their autograd Functions (kernel forward; the flash backward
+                kernel, GN+SiLU's plain autograd backward) against plain
+                autograd at the UNet's training shapes and the SD UNet's
+                27^2 level at batch 32, bf16 and fp32.  (b) A tiny trainer
                 on the card against one on the CPU (fp32, TF32 off), the same
                 parameters, batches and draws: the first step's loss and
                 gradients, the parameters and EMA after 3 steps.  (c)
@@ -66,7 +74,8 @@ prints one JSON line per phase:
                 DPM-10 request from them.  It reports the step wall after the
                 first step, samples/s, peak memory, the losses and the
                 launches of each part against ``predicted_train_launches``
-                (forward launches only: the backward launches no kernel).
+                (the flash backward kernel once for each attention call
+                whose q, k or v needs a gradient).
 7. ``stage1``   stage-1 training, run before phase 6c so that its stage 2
                 trains from the stage-1 checkpoint.  (a) The spatial block
                 through ``SpatialXattn`` (kernel forward, the fp32 body
@@ -131,7 +140,9 @@ prints one JSON line per phase:
                 attention (head dims 40, 80, 160; 27^2 self and cross on
                 prompt-masked text keys) and GN+SiLU (27^2x960, 14^2x1920,
                 4^2x2560) against their plain versions at batch 32 in bf16,
-                with the same times and bounds as phase 2.  (b) The tiny SD
+                with the same times and bounds as phase 2, and the flash
+                backward kernel at the four attention shapes
+                (``SD_BWD_CASES``) as phase 2 holds it.  (b) The tiny SD
                 trainer (with the text projection) on the card against the
                 CPU in fp32, 3 steps, to phase 6b's bounds.  (c)
                 config/train_config.yaml at full width (SD-1.5, 768-d
@@ -190,11 +201,14 @@ are set to 0 just before its requests and read just after them.
 
 Phase 2 holds GroupNorm+SiLU at the decoder's and the UNet's sites and, at
 batch 1 and 4, at the VAE encoder's (107^2x32 with one channel a group,
-53^2x64, 27^2x128).  Then the card's name and power limit, the ``kernels``
-line (each kernel at its heaviest main-path shape, with its launches summed
-over phases 4-14, and the spatial kernel's gradient: its Function's forward
-and backward at phase 7a's main case, launched in phase 7c's steps), and last
-``{"ok": true, "device": {...}}``.  ``--json PATH`` also writes every
+53^2x64, 27^2x128).  Throughout, FlashSDPA's backward on the card must call
+no plain version (``PlainInBackward``).  Then the card's name and power
+limit, the ``kernels`` line (each kernel at its heaviest main-path shape,
+with its launches summed over phases 4-14; the flash backward kernel at the
+UNet's 14^2 hd-160 training shape; and the spatial kernel's gradient: its
+Function's forward and backward at phase 7a's main case, launched in phase
+7c's steps), and last ``{"ok": true, "device": {...}}``.
+``--json PATH`` also writes every
 phase's record to PATH.
 """
 
@@ -283,8 +297,12 @@ def card_line():
 # build
 # ---------------------------------------------------------------------------
 
-TENSOR_CORE_KERNELS = (("flash_attention", "flash_bf16"),   # library, kernel name part
-                       ("spatial_xattn", "spatial_xattn_tc"))
+# library, kernel name part, the tensor-core instructions one of which each
+# such kernel must hold: the bf16 flash forward runs on Hopper's warpgroup
+# products (HGMMA), the backward and the spatial kernel on mma.sync (HMMA)
+TENSOR_CORE_KERNELS = (("flash_attention", "flash_bf16", ("HGMMA",)),
+                       ("flash_attention_bwd", "_bf16", ("HMMA", "HGMMA")),
+                       ("spatial_xattn", "spatial_xattn_tc", ("HMMA", "HGMMA")))
 
 
 def spilled(nvcc_output, name_part):
@@ -545,6 +563,24 @@ def spatial_cases(dtype):
                          prompt_mask=True)]
 
 
+def flash_cases(dtype):
+    """The flash kernel's phase-2 cases: (B, H, Lq, Lk, D, masked) of the
+    main path."""
+    return [flash_case(name, *shape, dtype) for name, shape in (
+        ("bert self L128 hd64", (4, 12, 128, 128, 64, True)),
+        ("bert self L128 hd64 b1", (1, 12, 128, 128, 64, True)),
+        ("unet 14^2 self hd160", (8, 4, 196, 196, 160, False)),
+        ("unet 14^2 cross hd160", (8, 4, 196, 128, 160, True)),
+        ("unet 7^2 self hd320", (8, 4, 49, 49, 320, False)),
+        ("unet 7^2 cross hd320", (8, 4, 49, 128, 320, True)),
+        ("unet 4^2 self hd320", (8, 4, 16, 16, 320, False)),
+        ("unet 4^2 cross hd320", (8, 4, 16, 128, 320, True)),
+        ("vae 27^2 xattn hd64", (4, 8, 729, 128, 64, True)),
+        ("vae 27^2 xattn hd32", (4, 8, 729, 128, 32, True)),
+        ("vae 54^2 xattn hd16", (4, 8, 2916, 128, 16, True)),
+        ("clip vision L50 hd64", (*CLIP_VISION, False)))]
+
+
 def main_path_cases():
     cases = []
     for dtype in (torch.bfloat16, torch.float32):
@@ -558,20 +594,7 @@ def main_path_cases():
         for hw, c in ((107, 32), (53, 64), (27, 128)):   # the VAE encoder
             for b in (1, 4):
                 cases.append(gn_case(f"vae enc {hw}^2x{c} G32 b{b}", b, hw, c, 32, dtype))
-        for name, shape in (
-                ("bert self L128 hd64", (4, 12, 128, 128, 64, True)),
-                ("bert self L128 hd64 b1", (1, 12, 128, 128, 64, True)),
-                ("unet 14^2 self hd160", (8, 4, 196, 196, 160, False)),
-                ("unet 14^2 cross hd160", (8, 4, 196, 128, 160, True)),
-                ("unet 7^2 self hd320", (8, 4, 49, 49, 320, False)),
-                ("unet 7^2 cross hd320", (8, 4, 49, 128, 320, True)),
-                ("unet 4^2 self hd320", (8, 4, 16, 16, 320, False)),
-                ("unet 4^2 cross hd320", (8, 4, 16, 128, 320, True)),
-                ("vae 27^2 xattn hd64", (4, 8, 729, 128, 64, True)),
-                ("vae 27^2 xattn hd32", (4, 8, 729, 128, 32, True)),
-                ("vae 54^2 xattn hd16", (4, 8, 2916, 128, 16, True)),
-                ("clip vision L50 hd64", (*CLIP_VISION, False))):
-            cases.append(flash_case(name, *shape, dtype))
+        cases += flash_cases(dtype)
         cases += spatial_cases(dtype)
     return cases
 
@@ -609,6 +632,117 @@ def run_case(case):
     del sets, got, ref
     torch.cuda.empty_cache()   # the graphs' memory pools
     return rec
+
+
+# The flash backward kernel's cases: the main path's training shapes (the
+# UNet's GRAD_FLASH at batch 32, BERT-base and CLIP's vision tower, which
+# hand the kernel fp32 in bf16 training) and, in phase 11, the SD UNet's.
+FLASH_BWD_CASES = (
+    ("unet 14^2 self hd160 b32", (32, 4, 196, 196, 160, False), torch.bfloat16),
+    ("unet 14^2 cross hd160 b32", (32, 4, 196, 128, 160, True), torch.bfloat16),
+    ("unet 7^2 self hd320 b32", (32, 4, 49, 49, 320, False), torch.bfloat16),
+    ("unet 4^2 cross hd320 b32", (32, 4, 16, 128, 320, True), torch.bfloat16),
+    ("bert self L128 hd64 b32", (32, 12, 128, 128, 64, True), torch.float32),
+    ("clip vision L50 hd64 b32", (32, 12, 50, 50, 64, False), torch.float32),
+    ("clip vision L50 hd64 b32", (32, 12, 50, 50, 64, False), torch.bfloat16),
+)
+
+
+def run_flash_bwd_case(name, b, h, lq, lk, d, masked, dtype):
+    """The backward kernel at one shape: against sdpa_backward_plain on the
+    forward kernel's output and logsumexp and against autograd of
+    sdpa_plain (``TOL``); its device time (a CUDA graph's replay) beside
+    its bound (five products, 10 B H Lq Lk D operations; q, k, v, o, dO,
+    the logsumexp and the bias read once, dq, dk, dv written once; one
+    exponential a score), the plain autograd backward's device time and,
+    as a yardstick only, F.scaled_dot_product_attention's backward: each a
+    graph of forward and backward less a graph of the forward alone."""
+    from psg_tpu_torch.ops import flash_attention as fa
+
+    scale = d ** -0.5
+    q, k, v, bias = flash_case(name, b, h, lq, lk, d, masked, dtype)["make"](0)
+    gy = _randn((b, lq, h, d), 5, dtype).transpose(1, 2)   # the heads' merge hands it back
+    key_bias = fa._key_bias(bias, b, lk)
+    o, lse = fa._launch(q, k, v, key_bias, scale, lse=True)
+    got = fa._launch_bwd(q, k, v, o, gy, lse, key_bias, scale)
+    plain = fa.sdpa_backward_plain(q, k, v, o, gy, lse, bias, scale)
+    xs = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    auto = torch.autograd.grad(fa.sdpa_plain(*xs, bias=bias, scale=scale), xs, gy)
+    torch.cuda.synchronize()
+    errs = [max((g.float() - r.float()).abs().max().item() for g, r in zip(got, ref))
+            for ref in (plain, auto)]
+    ok = all(torch.isfinite(g.float()).all()
+             and torch.allclose(g.float(), r.float(), **TOL[dtype])
+             for ref in (plain, auto) for g, r in zip(got, ref))
+    del plain, auto
+    kernel_ms = device_ms(lambda: fa._launch_bwd(q, k, v, o, gy, lse, key_bias, scale), [()],
+                          20)
+    call_ms = time_ms(lambda: fa._launch_bwd(q, k, v, o, gy, lse, key_bias, scale), [()], 20)
+
+    def backward_ms(fwd, reps):
+        both = device_ms(lambda: torch.autograd.grad(fwd(*xs), xs, gy), [()], reps)
+        return both - device_ms(lambda: fwd(*xs), [()], reps)
+
+    plain_ms = backward_ms(lambda q, k, v: fa.sdpa_plain(q, k, v, bias=bias, scale=scale), 3)
+    mask = None if bias is None else bias.to(dtype)
+    lib_ms = backward_ms(lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, scale=scale), 10)
+    flops = 10 * b * h * lq * lk * d
+    b_ms, b_by, b_parts = bound(nbytes(q, k, v, o, gy, lse, key_bias) + nbytes(q, k, v),
+                                flops, dtype, exps=b * h * lq * lk)
+    rec = dict(kernel="flash_attention_bwd", name=name, dtype=str(dtype).replace("torch.", ""),
+               max_abs_err=max(errs), max_abs_err_vs_plain_algorithm=errs[0],
+               max_abs_err_vs_autograd=errs[1], rtol=TOL[dtype]["rtol"],
+               atol=TOL[dtype]["atol"], ok=bool(ok), kernel_ms=kernel_ms, call_ms=call_ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+               bound_parts_ms=b_parts)
+    del q, k, v, o, lse, got, xs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def run_flash_bwd_cases(cases):
+    recs = [run_flash_bwd_case(name, *shape, dtype) for name, shape, dtype in cases]
+    bad = [r for r in recs if not r["ok"]]
+    if bad:
+        fail("the flash backward kernel disagrees with its plain version: " + "; ".join(
+            f"{r['name']} {r['dtype']} err {r['max_abs_err']:.3g}" for r in bad))
+    return recs
+
+
+class PlainInBackward:
+    """Counts calls of the flash plain versions made inside FlashSDPA's
+    backward (on the card that backward launches the kernel and must call
+    none of them).  Installed for the whole run."""
+
+    NAMES = ("sdpa_plain", "sdpa_lse_plain", "sdpa_backward_plain", "_plain")
+
+    def __init__(self):
+        from psg_tpu_torch.ops import flash_attention as fa
+
+        self.calls, self.inside = 0, False
+        for name in self.NAMES:
+            real = getattr(fa, name)
+
+            def counted(*a, _real=real, **kw):
+                self.calls += self.inside
+                return _real(*a, **kw)
+            setattr(fa, name, counted)
+        backward = fa.FlashSDPA.backward
+
+        def watched(ctx, grad, _orig=backward):
+            self.inside = True
+            try:
+                return _orig(ctx, grad)
+            finally:
+                self.inside = False
+        fa.FlashSDPA.backward = staticmethod(watched)
+
+    def check(self, where):
+        if self.calls:
+            fail(f"{where}: FlashSDPA's backward called a plain version {self.calls} "
+                 f"times on the card")
+        return {"plain_calls_in_flash_backward": self.calls}
 
 
 # ---------------------------------------------------------------------------
@@ -671,7 +805,27 @@ def predicted_launches(gen, n_unet_evals, *, text_encodes=1, encodes=0, decodes=
                                 + decodes * (4 * len(_DEC_BLOCKS) + 1)),
             "flash_attention": (text_encodes * gen.bert_cfg.num_layers
                                 + n_unet_evals * unet_attn + decodes * (len(widths) - fused)),
-            "spatial_xattn": decodes * fused}
+            "spatial_xattn": decodes * fused,
+            "flash_attention_bwd": 0}
+
+
+def forward_only(pred):
+    """A prediction for a pass without gradient (validation, sampling):
+    its forward launches and no backward kernel."""
+    return {**pred, "flash_attention_bwd": 0}
+
+
+def forward_kernels(counts):
+    """The counts of the forward kernels only (a request launches no
+    backward)."""
+    return {k: v for k, v in counts.items() if k != "flash_attention_bwd"}
+
+
+def with_flash_backward(pred, n):
+    """A training step's prediction: its forward launches and ``n``
+    launches of the flash backward kernel, one for each attention call
+    whose q, k or v needs a gradient."""
+    return {**pred, "flash_attention_bwd": n}
 
 
 def phase_e2e_card_vs_cpu():
@@ -730,8 +884,9 @@ def phase_e2e_card_vs_cpu():
             fail(f"tiny e2e {name}: bad output {tuple(got.shape)}")
         if not mae <= E2E_MAE:
             fail(f"tiny e2e {name}: card vs CPU image MAE {mae} > {E2E_MAE}")
-        if min(counts.values()) == 0:
-            fail(f"tiny e2e {name}: a kernel was not launched: {counts}")
+        if min(forward_kernels(counts).values()) == 0 or counts["flash_attention_bwd"]:
+            fail(f"tiny e2e {name}: a forward kernel was not launched, or a "
+                 f"backward was: {counts}")
     return {"bound": E2E_MAE, **out}
 
 
@@ -803,7 +958,7 @@ def phase_serve_full_width(corpus):
         fail(f"generate_from_text: bad image {a.shape}")
     if not np.array_equal(a, b):
         fail("generate_from_text: the same seed gave a different image")
-    if launches != expected or min(launches.values()) == 0:
+    if launches != expected or min(forward_kernels(launches).values()) == 0:
         fail(f"main path launches {launches} != predicted {expected}")
     record = {"params": n_params, "init_s": init_s, "requests": requests,
               "launches": launches, "image_std": float(imgs.std()),
@@ -905,7 +1060,7 @@ def phase_serve_paths_full_width(gen, corpus, sprites):
     if not np.array_equal(it[0], it[1]) or np.array_equal(it[0], it[2]):
         fail("generate_from_image_and_text: a seed did not repeat its image, or "
              "another seed gave the same one")
-    if launches != expected or min(launches.values()) == 0:
+    if launches != expected or min(forward_kernels(launches).values()) == 0:
         fail(f"serve paths launches {launches} != predicted {expected}")
     record = {"mean_negative_init_s": mean_init_s, "corpus": n_corpus,
               "requests": requests, "launches": launches,
@@ -923,7 +1078,10 @@ GRAD_GN = ((27, 320), (27, 640), (14, 1280), (7, 2560), (4, 2560))
 GRAD_FLASH = (("unet 14^2 self hd160", (32, 4, 196, 196, 160, False)),
               ("unet 14^2 cross hd160", (32, 4, 196, 128, 160, True)),
               ("unet 7^2 self hd320", (32, 4, 49, 49, 320, False)),
-              ("unet 4^2 cross hd320", (32, 4, 16, 128, 320, True)))
+              ("unet 4^2 cross hd320", (32, 4, 16, 128, 320, True)),
+              # the SD UNet's 27^2 level (--use-diffusers), its heaviest backward
+              ("sd 27^2 self hd40", (32, 8, 729, 729, 40, False)),
+              ("sd 27^2 cross hd40", (32, 8, 729, 128, 40, True)))
 # card against CPU on the tiny config (fp32, TF32 off), same params and draws.
 # The gradients' bound is per leaf, 1e-3 * max|g| + 1e-6 (cuDNN and CPU
 # convolutions sum in other orders); params after 3 AdamW steps at lr 3e-4
@@ -1078,7 +1236,8 @@ def phase_train_card_vs_cpu(tmp):
     if not max(param_err, ema_err) <= TRAIN_PARAM_ATOL:
         fail(f"train card vs CPU: params after 3 steps {param_err:.3g}, ema {ema_err:.3g} "
              f"> {TRAIN_PARAM_ATOL}")
-    if min(ops_counts[k] for k in ("group_norm_silu", "flash_attention")) == 0:
+    if min(ops_counts[k] for k in ("group_norm_silu", "flash_attention",
+                                   "flash_attention_bwd")) == 0:
         fail(f"train card vs CPU: a kernel was not launched: {ops_counts}")
     return {"loss_cpu": float(loss_cpu), "loss_card": float(loss_card), "loss_rel": loss_rel,
             "loss_rtol": TRAIN_LOSS_RTOL, "grad_err_over_bound": grad_err,
@@ -1088,10 +1247,15 @@ def phase_train_card_vs_cpu(tmp):
 
 
 def predicted_train_launches(trainer):
-    """Forward launches of one training step (the backward recomputes the
-    plain versions and launches nothing): a text encode, a VAE encode and a
-    UNet evaluation."""
-    return predicted_launches(trainer, 1, text_encodes=1, encodes=1, decodes=0)
+    """Launches of one training step: forward, a text encode, a VAE encode
+    and a UNet evaluation; backward, the flash kernel's for the UNet's
+    attention calls only (the text encoder and the VAE encoder run under
+    ``no_grad``, stage2_diffusion.py ``_text`` and ``_noise_loss_emb``;
+    GN+SiLU and the spatial block recompute their plain versions)."""
+    unet = predicted_launches(trainer, 1, text_encodes=0, encodes=0, decodes=0)
+    return with_flash_backward(
+        predicted_launches(trainer, 1, text_encodes=1, encodes=1, decodes=0),
+        unet["flash_attention"])
 
 
 def phase_train_full_width(exp, corpus, vae_checkpoint):
@@ -1144,7 +1308,8 @@ def phase_train_full_width(exp, corpus, vae_checkpoint):
     per_step = predicted_train_launches(trainer)
     sample_steps = int(cfg.extra["sample_steps"])
     want = {"train_epoch": {k: FULL_STEPS * v for k, v in per_step.items()},
-            "validate": {k: len(trainer.val_loader) * v for k, v in per_step.items()},
+            "validate": {k: len(trainer.val_loader) * v
+                         for k, v in forward_only(per_step).items()},
             "generate_samples": predicted_launches(trainer, sample_steps)}
     got = {}
 
@@ -1450,9 +1615,14 @@ def phase_stage1_card_vs_cpu(tmp):
 
 
 def predicted_stage1_launches(trainer):
-    """Forward launches of one stage-1 step or validation batch: a text
-    encode, a VAE encode and a decode (the backward launches no kernel)."""
-    return predicted_launches(trainer, 0, text_encodes=1, encodes=1, decodes=1)
+    """Launches of one stage-1 training step: forward, a text encode, a VAE
+    encode and a decode; backward, the flash kernel's for every flash call
+    of the step (BERT's layers and the decoder's unfused sites): every
+    parameter takes a gradient, frozen BERT layers included (stage1_vae.py),
+    and the encoder holds no attention.  ``forward_only`` of it is a
+    validation batch."""
+    fwd = predicted_launches(trainer, 0, text_encodes=1, encodes=1, decodes=1)
+    return with_flash_backward(fwd, fwd["flash_attention"])
 
 
 def phase_stage1_full_width(exp, corpus):
@@ -1502,8 +1672,9 @@ def phase_stage1_full_width(exp, corpus):
     per_step = predicted_stage1_launches(trainer)
     prior = predicted_launches(trainer, 0, text_encodes=1, encodes=0, decodes=1)
     want = {"train_epoch": {k: FULL_STEPS * v for k, v in per_step.items()},
-            "validate": {k: len(trainer.val_loader) * v for k, v in per_step.items()},
-            "generate_samples": {k: prior[k] + per_step[k] for k in prior}}
+            "validate": {k: len(trainer.val_loader) * v
+                         for k, v in forward_only(per_step).items()},
+            "generate_samples": {k: prior[k] + forward_only(per_step)[k] for k in prior}}
     got = {}
 
     def part(name, fn):
@@ -1669,13 +1840,17 @@ def phase_stage3_card_vs_cpu(tmp):
 
 
 def predicted_stage3_launches(trainer):
-    """Forward launches of one stage-3 step or validation batch: a text
-    encode, a VAE encode (without gradient, still on the kernels), a decode,
-    and CLIP's vision tower (one flash attention per block; its text tower
-    carries a causal + padding bias and takes the plain version)."""
+    """Launches of one stage-3 training step: forward, a text encode, a VAE
+    encode (without gradient, still on the kernels), a decode, and CLIP's
+    vision tower (one flash attention per block; its text tower carries a
+    causal + padding bias and takes the plain version); backward, the flash
+    kernel's for every flash call of the step: BERT and the decoder take
+    gradients in both phases (stage3_final.py), and the frozen vision tower
+    reads the reconstruction, which needs one.  ``forward_only`` of it is a
+    validation batch."""
     want = predicted_launches(trainer, 0, text_encodes=1, encodes=1, decodes=1)
     want["flash_attention"] += trainer.clip_cfg.vision_layers
-    return want
+    return with_flash_backward(want, want["flash_attention"])
 
 
 def _ckpt_files(directory):
@@ -1769,7 +1944,7 @@ def phase_stage3_full_width(exp, corpus, vae_checkpoint, diffusion_checkpoint):
                lambda: trainer.train_epoch(0), {k: FULL_STEPS * v for k, v in per_step.items()})
     moved_phase1 = {k: changed(k) for k in watch}
     val1 = part("validate text_encoder", lambda: trainer.validate(0),
-                {k: n_val * v for k, v in per_step.items()})
+                {k: n_val * v for k, v in forward_only(per_step).items()})
     skipped = trainer.skipped_batches()      # the switch starts a new count
     wrote1 = part("save_checkpoint text_encoder", lambda: trainer.save_checkpoint(0, val1))
     files1 = _ckpt_files(trainer.ckpt.dir)
@@ -1778,7 +1953,7 @@ def phase_stage3_full_width(exp, corpus, vae_checkpoint, diffusion_checkpoint):
                {k: FULL_STEPS * v for k, v in per_step.items()})
     moved_joint = {k: changed(k) for k in watch}
     val2 = part("validate joint", lambda: trainer.validate(1),
-                {k: n_val * v for k, v in per_step.items()})
+                {k: n_val * v for k, v in forward_only(per_step).items()})
     grid = part("generate_samples", lambda: trainer.generate_samples(1),
                 predicted_launches(trainer, int(cfg.extra["sample_steps"])))
     wrote2 = part("save_checkpoint joint", lambda: trainer.save_checkpoint(1, val2))
@@ -1899,8 +2074,8 @@ def phase_stage0_card_vs_cpu(tmp):
         param_err = max(param_err, d.max().item() if d.numel() else 0.0)
     if not param_err <= S1_PARAM_ATOL:
         fail(f"stage 0 card vs CPU: params after 3 steps {param_err:.3g} > {S1_PARAM_ATOL}")
-    if counts["flash_attention"] == 0:
-        fail(f"stage 0 card vs CPU: the flash kernel was not launched: {counts}")
+    if counts["flash_attention"] == 0 or counts["flash_attention_bwd"] == 0:
+        fail(f"stage 0 card vs CPU: the flash kernels were not launched: {counts}")
     return {"losses_cpu_card": losses, "loss_rel": loss_rel, "loss_rtol": S1_LOSS_RTOL,
             "grad_err_over_bound": grad_err, "grad_rtol": S1_GRAD_RTOL,
             "params_after_3_steps_max_abs_determined": param_err,
@@ -1950,9 +2125,11 @@ def phase_stage0_full_width(exp, corpus):
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = ops.launch_counts()     # ... and ends here
+    # every BERT layer trains, so each flash call launches the backward too
     per_step = {"group_norm_silu": 0, "flash_attention": trainer.bert_cfg.num_layers,
-                "spatial_xattn": 0}
-    want = {k: (spe + 1) * v for k, v in per_step.items()}   # the steps and one validation
+                "spatial_xattn": 0, "flash_attention_bwd": trainer.bert_cfg.num_layers}
+    want = {k: spe * v + forward_only(per_step)[k]   # the steps and one validation
+            for k, v in per_step.items()}
     if launches != want:
         fail(f"stage 0: kernel launches {launches} != predicted {want}")
     if not (best.exists() and np.isfinite(step_loss).all()):
@@ -2123,7 +2300,7 @@ def _fast_compare(name, cpu, card, epochs, grad_rtol, loss_rtol, param_atol,
         fail(f"{name} fast card vs CPU: params after 3 steps {param_err:.3g} > {param_atol}")
     if card.state.step != 3 or cpu.state.step != 3:
         fail(f"{name} fast card vs CPU: {card.state.step} / {cpu.state.step} steps, not 3")
-    need = ("group_norm_silu", "flash_attention") + (
+    need = ("group_norm_silu", "flash_attention", "flash_attention_bwd") + (
         () if name == "stage 2" else ("spatial_xattn",))
     if min(counts[k] for k in need) == 0:
         fail(f"{name} fast card vs CPU: a kernel was not launched: {counts}")
@@ -2222,12 +2399,16 @@ def predicted_fast_launches(trainer, steps, val_batches, setup_encodes):
     from psg_tpu_torch.train.stage3_final import FinalTrainer
 
     if isinstance(trainer, VAETrainer):
-        per_step = per_val = predicted_stage1_launches(trainer)
+        per_step = predicted_stage1_launches(trainer)
     elif isinstance(trainer, FinalTrainer):
-        per_step = per_val = predicted_stage3_launches(trainer)
-    else:
-        per_step = predicted_launches(trainer, 1, text_encodes=int(trainer.caption_augment > 0),
-                                      encodes=1, decodes=0)
+        per_step = predicted_stage3_launches(trainer)
+    else:   # the caption variants' text encode runs without gradient
+        unet = predicted_launches(trainer, 1, text_encodes=0, encodes=0, decodes=0)
+        per_step = with_flash_backward(
+            predicted_launches(trainer, 1, text_encodes=int(trainer.caption_augment > 0),
+                               encodes=1, decodes=0), unet["flash_attention"])
+    per_val = forward_only(per_step)
+    if not isinstance(trainer, (VAETrainer, FinalTrainer)):
         per_val = predicted_launches(trainer, 1, text_encodes=0, encodes=1, decodes=0)
     setup = predicted_launches(trainer, 0, text_encodes=1, encodes=0, decodes=0)
     return {k: steps * per_step[k] + val_batches * per_val[k] + setup_encodes * setup[k]
@@ -2497,11 +2678,22 @@ def sd_cases():
             gn_case("sd 4^2x2560 G32", b, 4, 2560, 32, bf16)]
 
 
-def predicted_sd_launches(trainer, n_unet_evals, *, text_encodes=1, encodes=0, decodes=0):
-    """Forward launches from the SD UNet's structure: per evaluation two
-    GN+SiLU per resnet plus conv_norm_out, and two attention calls per
-    transformer; the text encodes and VAE passes as ``predicted_launches``
-    counts them."""
+# (a) the flash backward kernel at the SD UNet's attention shapes, batch 32
+SD_BWD_CASES = tuple((f"{name} b{SD_BATCH}", (SD_BATCH, 8, *shape), torch.bfloat16)
+                     for name, shape in (("sd 27^2 self hd40", (729, 729, 40, False)),
+                                         ("sd 27^2 cross hd40", (729, 128, 40, True)),
+                                         ("sd 14^2 self hd80", (196, 196, 80, False)),
+                                         ("sd 7^2 self hd160", (49, 49, 160, False))))
+
+
+def predicted_sd_launches(trainer, n_unet_evals, *, text_encodes=1, encodes=0, decodes=0,
+                          grad=False):
+    """Launches from the SD UNet's structure: per evaluation two GN+SiLU
+    per resnet plus conv_norm_out, and two attention calls per transformer;
+    the text encodes and VAE passes as ``predicted_launches`` counts them.
+    With ``grad`` (a training step) every flash call also launches the
+    backward kernel: the SD step trains BERT and the UNet, and the VAE
+    encoder (under ``no_grad``, stage2_sd.py) holds no attention."""
     spec = trainer.spec
     nlvl, lpb = len(spec.channels), spec.layers_per_block
     resnets = nlvl * lpb + 2 + nlvl * (lpb + 1)
@@ -2510,7 +2702,7 @@ def predicted_sd_launches(trainer, n_unet_evals, *, text_encodes=1, encodes=0, d
                              decodes=decodes)
     out["group_norm_silu"] += n_unet_evals * (2 * resnets + 1)
     out["flash_attention"] += n_unet_evals * 2 * transformers
-    return out
+    return with_flash_backward(out, out["flash_attention"]) if grad else out
 
 
 def phase_sd_card_vs_cpu(tmp):
@@ -2545,7 +2737,7 @@ def phase_sd_card_vs_cpu(tmp):
     loss_cpu, g_cpu = cpu._grads(cpu._batch(batches[0]), draws[0])
     loss_card, g_card = card._grads(card._batch(batches[0]), draws[0])
     counts = ops.launch_counts()
-    want = predicted_sd_launches(card, 1, encodes=1)
+    want = predicted_sd_launches(card, 1, encodes=1, grad=True)
     if counts != want:
         fail(f"sd card vs CPU: first step's launches {counts} != predicted {want}")
     loss_rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
@@ -2624,10 +2816,11 @@ def phase_sd_full_width(exp, corpus, vae_checkpoint):
     trainer._step = timed_step
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()          # this path's counted run starts here
-    per_step = predicted_sd_launches(trainer, 1, encodes=1)
+    per_step = predicted_sd_launches(trainer, 1, encodes=1, grad=True)
     evals = len(x0_timesteps(cfg.model.num_timesteps, SD_SAMPLE_STEPS))
     want = {"train_epoch": {k: SD_STEPS * v for k, v in per_step.items()},
-            "validate": {k: len(trainer.val_loader) * v for k, v in per_step.items()},
+            "validate": {k: len(trainer.val_loader) * v
+                         for k, v in forward_only(per_step).items()},
             "generate_samples": predicted_sd_launches(trainer, evals, decodes=1)}
     got = {}
 
@@ -2879,8 +3072,8 @@ def phase_scale_out(exp, corpus, vae_checkpoint, sprites):
         grad_bytes = sum(p.numel() * 4 for p in tree.leaves(trainer.state.params))
         nccl, call_bytes = _nccl_profile(lambda: orig_step(batch))
         train_launches = ops.launch_counts()    # 3 steps, validation, the profiled step
-        want_train = {k: (FULL_STEPS + len(trainer.val_loader) + 1) * v
-                      for k, v in per_step.items()}
+        want_train = {k: (FULL_STEPS + 1) * v + len(trainer.val_loader) * forward_only(
+            per_step)[k] for k, v in per_step.items()}
         if train_launches != want_train:
             fail(f"mesh train_epoch + validate + a step: launches {train_launches} "
                  f"!= {want_train}")
@@ -2924,7 +3117,7 @@ def phase_scale_out(exp, corpus, vae_checkpoint, sprites):
                                               + 1) + 1,
                       "flash_attention": 2 * (2 * spec.blocks_per_level
                                               * sum(spec.attention_levels) + 1),
-                      "spatial_xattn": 0}
+                      "spatial_xattn": 0, "flash_attention_bwd": 0}
         total_want = {k: want_train[k] + want_gen[k] + entry_want[k] for k in want_train}
         if launches != total_want:
             fail(f"phase 12 launches {launches} != predicted {total_want}")
@@ -3479,7 +3672,7 @@ def phase_eval_scripts(exp, corpus, diffusion_checkpoint):
     sub("c", recipe_sweep)
     sub("d", ddim_evidence)
     launches = ops.launch_counts()   # ... and ends here
-    if launches != expected or min(launches.values()) == 0:
+    if launches != expected or min(forward_kernels(launches).values()) == 0:
         fail(f"phase 14 launches {launches} != predicted {expected}")
     release()
     return {"sub_phases": subs, "launches": launches, "predicted": expected, "ev": ev}
@@ -3601,10 +3794,10 @@ def main(argv=None):
     built = cuda_build.build_all(ops.KERNELS)
     build_s = time.perf_counter() - t
     tc, spills = {}, {}
-    for lib_name, kernel_part in TENSOR_CORE_KERNELS:
+    for lib_name, kernel_part, _ops in TENSOR_CORE_KERNELS:
         lib = next(k for k in ops.KERNELS if k.name == lib_name)
-        tc.update(tensor_core_instructions(lib.path, kernel_part))
-        spills.update(spilled(built[lib_name]["nvcc_output"], kernel_part))
+        tc[lib_name] = tensor_core_instructions(lib.path, kernel_part)
+        spills[lib_name] = spilled(built[lib_name]["nvcc_output"], kernel_part)
     emit("build", {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
                    "seconds": build_s,
                    "kernels": {k: {"built": v["built"], "seconds": v["seconds"],
@@ -3613,18 +3806,22 @@ def main(argv=None):
                                              if "registers" in ln or "spill" in ln]}
                                for k, v in built.items()},
                    "tensor_core_instructions": tc, "spill_bytes": spills})
-    for _lib, part in TENSOR_CORE_KERNELS:
-        counts = [c for f, c in tc.items() if part in f]
-        if not counts or any(c["HMMA"] + c["HGMMA"] == 0 for c in counts):
-            fail(f"the bf16 {part} kernels hold no tensor-core instruction: {tc}")
-        spill = [n for f, n in spills.items() if part in f]
+    for lib_name, part, want_ops in TENSOR_CORE_KERNELS:
+        counts = list(tc[lib_name].values())
+        if not counts or any(sum(c[op] for op in want_ops) == 0 for c in counts):
+            fail(f"the bf16 {part} kernels of {lib_name} hold no "
+                 f"{' or '.join(want_ops)}: {tc[lib_name]}")
+        spill = list(spills[lib_name].values())
         if not spill or any(spill):
-            fail(f"the bf16 {part} kernels spill (or ptxas printed nothing): {spills}")
+            fail(f"the bf16 {part} kernels of {lib_name} spill (or ptxas printed "
+                 f"nothing): {spills[lib_name]}")
+    plain_watch = PlainInBackward()
 
     t = time.perf_counter()
     results = [run_case(c) for c in main_path_cases()]
+    bwd_results = run_flash_bwd_cases(FLASH_BWD_CASES)
     emit("kernels_vs_plain", {"card": card, "seconds": time.perf_counter() - t,
-                              "cases": results})
+                              "cases": results, "flash_backward": bwd_results})
     bad = [r for r in results if not r["ok"]]
     if bad:
         fail("kernel disagrees with its plain version: " + "; ".join(
@@ -3670,7 +3867,8 @@ def main(argv=None):
         full = phase_train_full_width(exp, corpus, s1["checkpoint"])
         emit("train", {"card": card, "gradients": grads, "card_vs_cpu": tiny,
                        "full_width": full, "full_width_seconds": time.perf_counter() - t,
-                       "seconds": t6 + time.perf_counter() - t})
+                       "seconds": t6 + time.perf_counter() - t,
+                       **plain_watch.check("phases 6-7")})
         t = time.perf_counter()
         s3_grads = phase_stage3_gradients()
         s3_tiny = phase_stage3_card_vs_cpu(tmp)
@@ -3701,10 +3899,12 @@ def main(argv=None):
         if bad:
             fail("kernel disagrees with its plain version at an SD shape: " + "; ".join(
                 f"{r['name']} err {r['max_abs_err']:.3g}" for r in bad))
+        sd_bwd = run_flash_bwd_cases(SD_BWD_CASES)
         sd_tiny = phase_sd_card_vs_cpu(tmp)
         t_full = time.perf_counter()
         sd = phase_sd_full_width(exp, corpus, s1["checkpoint"])
-        emit("sd", {"card": card, "kernels_vs_plain": sd_kernels, "card_vs_cpu": sd_tiny,
+        emit("sd", {"card": card, "kernels_vs_plain": sd_kernels, "flash_backward": sd_bwd,
+                    "card_vs_cpu": sd_tiny,
                     "full_width": sd, "full_width_seconds": time.perf_counter() - t_full,
                     "seconds": time.perf_counter() - t})
         t = time.perf_counter()
@@ -3734,6 +3934,18 @@ def main(argv=None):
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
                         "composite_ms": r["composite_ms"]})
+    bwd_by_name = {(r["name"], r["dtype"]): r for r in bwd_results}
+    for case in ("unet 14^2 self hd160 b32",):
+        r = bwd_by_name[(case, "bfloat16")]
+        kernels.append({"name": "flash_attention_bwd", "route": "cuda",
+                        "source": "psg_tpu_torch/csrc/flash_attention_bwd.cu",
+                        "replaces": "psg_tpu/ops/flash_attention.py:108",
+                        "shape": case, "dtype": "bfloat16",
+                        "launches": sum(ph["launches"]["flash_attention_bwd"] for ph in (
+                            serve, paths, s1, full, s3, s0, fast, sd, scale, ck, evs)),
+                        "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     g = s1_grads["main_case"]
     kernels.append({"name": "spatial_xattn_grad", "route": "cuda",
                     "source": "psg_tpu_torch/ops/spatial_xattn.py",
@@ -3744,6 +3956,7 @@ def main(argv=None):
                     "max_abs_err": g["max_abs_err"], "ms": g["ms"], "plain_ms": g["plain_ms"],
                     "bound_ms": g["bound_ms"], "bound_by": g["bound_by"], "library_ms": None,
                     "backward_rows": g["backward_rows"]})
+    plain_watch.check("phases 8-14")
     REPORT["total_s"] = time.perf_counter() - t_start
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)

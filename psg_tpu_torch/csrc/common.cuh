@@ -10,6 +10,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cmath>
 #include <cstdint>
 
 namespace psg {
@@ -135,6 +136,22 @@ __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// The largest of bias[0 .. n) over the block, in every thread (0 without a
+// bias): the key bias the attention kernels take their logsumexp relative
+// to.  Every thread calls it; `red` holds one float a warp.
+__device__ __forceinline__ float block_max_bias(const float* bias, int n, float* red) {
+  if (bias == nullptr) return 0.f;
+  float mx = -INFINITY;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) mx = fmaxf(mx, bias[j]);
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  __syncthreads();  // red may hold an earlier value
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = mx;
+  __syncthreads();
+  mx = red[0];
+  for (int w = 1; w < (int)blockDim.x / 32; ++w) mx = fmaxf(mx, red[w]);
+  return mx;
 }
 
 }  // namespace psg

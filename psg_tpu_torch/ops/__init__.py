@@ -4,7 +4,8 @@ Each hot op has a hand-written Hopper kernel (``csrc/``) and, in the same
 module, a plain PyTorch version of the same function:
 
 - ``fused_norm``       GroupNorm + SiLU        (``csrc/group_norm_silu.cu``)
-- ``flash_attention``  short-KV attention      (``csrc/flash_attention.cu``)
+- ``flash_attention``  attention forward       (``csrc/flash_attention.cu``)
+                       and backward            (``csrc/flash_attention_bwd.cu``)
 - ``spatial_xattn``    VAE spatial attention   (``csrc/spatial_xattn.cu``)
 
 A wrapper takes the plain version for a tensor on the CPU, and for a CUDA
@@ -13,11 +14,12 @@ library counts its launches (``launch_counts``).
 
 Training differentiates every kernel through a ``torch.autograd.Function``
 (``fused_norm.GroupNormSiLU``, ``flash_attention.FlashSDPA``,
-``spatial_xattn.SpatialXattn``): the kernel runs forward, and the backward
-recomputes the plain version (for the spatial block, its fp32 body) and
-takes its gradient, as the TPU package's ``custom_vjp`` does for its spatial
-kernel.  A backward launches no kernel, so the counts are forward launches
-only.
+``spatial_xattn.SpatialXattn``): the kernel runs forward.  ``FlashSDPA``'s
+backward launches its own kernel (``flash_attention.BWD_KERNEL``, counted as
+``flash_attention_bwd``: one launch for each attention call whose q, k or v
+needs a gradient); the other two recompute the plain version (for the
+spatial block, its fp32 body) and take its gradient, as the TPU package's
+``custom_vjp`` does for its spatial kernel, and launch nothing backward.
 
 ``sdpa`` dispatches on the bias's shape as the TPU package's ``ops.sdpa``
 does (``psg_tpu/ops/__init__.py``): ``None`` or a per-key ``[B, 1, 1, Lk]``
@@ -33,7 +35,8 @@ import torch
 
 from psg_tpu_torch.ops import flash_attention, fused_norm, spatial_xattn
 
-KERNELS = (fused_norm.KERNEL, flash_attention.KERNEL, spatial_xattn.KERNEL)
+KERNELS = (fused_norm.KERNEL, flash_attention.KERNEL, spatial_xattn.KERNEL,
+           flash_attention.BWD_KERNEL)
 
 
 def launch_counts():

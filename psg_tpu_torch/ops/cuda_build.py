@@ -25,8 +25,6 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "psg_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# every source includes this header, so it is part of every library's hash
-_COMMON_HEADER = CSRC / "common.cuh"
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232448  # bytes of shared memory a Hopper block may use
@@ -56,7 +54,8 @@ class KernelLibrary:
     @property
     def path(self) -> Path:
         h = hashlib.sha1()
-        for p in (_COMMON_HEADER, self.source):
+        # the headers a source may include are part of its hash
+        for p in (*sorted(CSRC.glob("*.cuh")), self.source):
             h.update(p.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.source.stem}-{h.hexdigest()[:12]}.so"

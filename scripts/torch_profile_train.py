@@ -17,11 +17,13 @@ for each of its parts prints one JSON line: host wall time ending in a sync
 (the mean of ``--steps`` runs without the profiler, and the profiled run's),
 the summed device time of its kernels, their number, the device's idle share
 (1 - kernel time / wall), device time and kernel count by kernel family, the
-ten heaviest kernels, and the device time of the backward's recomputation of
-the kernels' plain versions: CUDA events around each autograd Function's
+ten heaviest kernels, and the device time of each kernel Function's backward
+(``function_backward``): CUDA events around each autograd Function's
 backward (the script wraps them; the backward runs on the current stream, so
 the interval holds exactly its kernels and the gaps between them), summed per
-step.  Then the step's samples/s and peak device memory.
+step, with what that backward is: FlashSDPA's launches the backward kernel
+(csrc/flash_attention_bwd.cu), GroupNormSiLU's and SpatialXattn's recompute
+their plain versions.  Then the step's samples/s and peak device memory.
 
 Parts.  Stage 2: the forward to the loss (frozen text and VAE encoders,
 q_sample, the UNet), the backward, the optimizer and the EMA.  Stage 1: the
@@ -72,7 +74,9 @@ sys.path.insert(0, str(ROOT / "scripts"))
 from torch_profile_serve import family  # noqa: E402
 
 
-RECOMPUTE = defaultdict(list)   # Function name -> [(start, end) CUDA events]
+BACKWARDS = defaultdict(list)   # Function name -> [(start, end) CUDA events]
+BACKWARD_KIND = {"FlashSDPA": "kernel", "GroupNormSiLU": "plain recomputation",
+                 "SpatialXattn": "plain recomputation"}
 
 
 def time_backwards():
@@ -87,7 +91,7 @@ def time_backwards():
             start.record()
             out = _orig(ctx, grad)
             end.record()
-            RECOMPUTE[_name].append((start, end))
+            BACKWARDS[_name].append((start, end))
             return out
         cls.backward = staticmethod(timed)
 
@@ -135,16 +139,17 @@ def measure(name, fn, reps, setup=None, trace=None):
     for _ in range(reps):
         arg = setup() if setup else None
         torch.cuda.synchronize()
-        RECOMPUTE.clear()           # only this run's backwards
+        BACKWARDS.clear()           # only this run's backwards
         t = time.perf_counter()
         fn(arg)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
-        for k, evs in RECOMPUTE.items():
+        for k, evs in BACKWARDS.items():
             rec_ms[k] += sum(s.elapsed_time(e) for s, e in evs)
             rec_calls[k] += len(evs)
-    recomputed = {k: {"calls_per_run": rec_calls[k] // reps,
-                      "device_ms_per_run": rec_ms[k] / reps} for k in rec_ms}
+    backwards = {k: {"calls_per_run": rec_calls[k] // reps,
+                     "device_ms_per_run": rec_ms[k] / reps, "kind": BACKWARD_KIND[k]}
+                 for k in rec_ms}
     arg = setup() if setup else None
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -177,7 +182,7 @@ def measure(name, fn, reps, setup=None, trace=None):
            "wall_ms_profiled": wall_profiled * 1e3, "kernel_ms": kernels / 1e3,
            "kernels": launches,
            "device_idle_share": (1.0 - kernels / 1e6 / wall) if kernels else None,
-           "recomputed_backward": recomputed, "runtime_calls": dict(runtime),
+           "function_backward": backwards, "runtime_calls": dict(runtime),
            "top_host_ms": [{"ms": us / 1e3, "count": n, "op": k}
                            for us, n, k in sorted(host, reverse=True)[:8]],
            "by_family_ms": {k: v / 1e3 for k, v in sorted(by_family.items(),

@@ -322,13 +322,16 @@ def test_each_wrapper_call_counts_one_launch(card):
     ops.sdpa(q, q, q)
     operands = _spatial_operands(card, torch.float32, 1, 16, 32, 8)
     spatial_xattn.fused_spatial_xattn(*operands[:8], num_heads=8)
+    qg = q.clone().requires_grad_(True)
+    ops.sdpa(qg, q, q).sum().backward()   # one forward and one backward launch
     torch.cuda.synchronize()
-    assert ops.launch_counts() == {"group_norm_silu": 1, "flash_attention": 2,
-                                   "spatial_xattn": 1}
+    assert ops.launch_counts() == {"group_norm_silu": 1, "flash_attention": 3,
+                                   "spatial_xattn": 1, "flash_attention_bwd": 1}
 
 
 # ---------------------------------------------------------------------------
-# gradients: the kernels forward, the plain versions' autograd backward
+# gradients: the kernels forward; FlashSDPA's backward kernel, the other two
+# Functions' plain versions' autograd backward
 # ---------------------------------------------------------------------------
 
 def _grads(fn, inputs, gy):
@@ -638,12 +641,134 @@ def test_sd_wrapper_gradient_reaches_every_trainable_leaf(card):
     got = grads(card)
     counts = ops.launch_counts()
     assert counts["group_norm_silu"] == 45 and counts["flash_attention"] == 32, counts
+    # every attention call's q, k and v need a gradient (the projections train)
+    assert counts["flash_attention_bwd"] == 32, counts
     for (path, _), g, r in zip(tree.items(params), got, grads("cpu")):
         assert torch.isfinite(g).all(), path
         if float(r.abs().max()) > 1e-6:
             assert g.abs().max() > 0, path
         torch.testing.assert_close(g, r, rtol=0, atol=1e-3 * float(r.abs().max()) + 1e-6,
                                    msg=path)
+
+
+# ---------------------------------------------------------------------------
+# flash attention's backward kernel (csrc/flash_attention_bwd.cu)
+# ---------------------------------------------------------------------------
+
+
+def _flash_operands(card, dtype, b, h, lq, lk, d, mask):
+    """q, k, v, the key bias ([B,1,1,Lk] or None) and an incoming gradient
+    as the heads' merge hands it back (a [B,H,Lq,D] view of [B,Lq,H,D])."""
+    q = _randn((b, h, lq, d), 0, card, dtype)
+    k, v = _randn((b, h, lk, d), 1, card, dtype), _randn((b, h, lk, d), 2, card, dtype)
+    bias = None
+    if mask != "none":
+        keep = torch.ones(b, lk, device=card, dtype=torch.bool)
+        keep[-1, max(1, lk // 3):] = False
+        if mask == "dead sample":   # every key of sample 0, all but one of the last
+            keep[0] = False
+            keep[-1] = False
+            keep[-1, lk // 2] = True
+        bias = torch.where(keep, 0.0, -1e9).float()[:, None, None, :]
+    gy = _randn((b, lq, h, d), 3, card, dtype).transpose(1, 2)
+    return q, k, v, bias, gy
+
+
+def _kernel_backward(q, k, v, bias, gy):
+    """The forward kernel's output and logsumexp, then the backward kernel."""
+    b, lk, d = q.shape[0], k.shape[2], q.shape[-1]
+    key_bias = flash_attention._key_bias(bias, b, lk)
+    o, lse = flash_attention._launch(q, k, v, key_bias, d ** -0.5, lse=True)
+    return o, lse, flash_attention._launch_bwd(q, k, v, o, gy, lse, key_bias, d ** -0.5)
+
+
+FLASH_GRAD_SHAPES = [
+    (8, 8, 729, 729, 40, "none"),     # SD 27^2 self-attention
+    (32, 8, 729, 729, 40, "none"),
+    (8, 8, 729, 128, 40, "third"),    # SD 27^2 cross-attention on the text keys
+    (32, 8, 729, 128, 40, "third"),
+    (8, 8, 196, 196, 80, "none"),     # SD 14^2
+    (32, 8, 196, 196, 80, "none"),
+    (8, 8, 49, 49, 160, "none"),      # SD 7^2
+    (32, 8, 49, 49, 160, "none"),
+    (32, 4, 196, 196, 160, "none"),   # the UNet's GRAD_FLASH shapes (chip_smoke.py)
+    (32, 4, 196, 128, 160, "third"),
+    (32, 4, 49, 49, 320, "none"),
+    (32, 4, 16, 128, 320, "third"),
+    (32, 12, 128, 128, 64, "third"),  # BERT-base (fp32 under bf16 training)
+    (32, 12, 50, 50, 64, "none"),     # CLIP ViT-B/32 vision
+    (2, 3, 33, 17, 6, "third"),       # ragged everything (tiny configs)
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,lq,lk,d,mask", FLASH_GRAD_SHAPES)
+def test_flash_attention_backward_kernel(card, dtype, b, h, lq, lk, d, mask):
+    """The backward kernel against sdpa_backward_plain on the same output
+    and logsumexp, and against autograd of sdpa_plain, within the kernels'
+    tolerance; the forward's logsumexp against sdpa_lse_plain's."""
+    q, k, v, bias, gy = _flash_operands(card, dtype, b, h, lq, lk, d, mask)
+    o, lse, got = _kernel_backward(q, k, v, bias, gy)
+    ref_o, ref_lse = flash_attention.sdpa_lse_plain(q, k, v, bias=bias, scale=d ** -0.5)
+    _close(o, ref_o, dtype)
+    torch.testing.assert_close(lse, ref_lse, **TOL[torch.float32])
+    plain = flash_attention.sdpa_backward_plain(q, k, v, o, gy, lse, bias, d ** -0.5)
+    auto = _grads(lambda q, k, v: flash_attention.sdpa_plain(q, k, v, bias=bias,
+                                                             scale=d ** -0.5), (q, k, v), gy)
+    for g, p, a, t in zip(got, plain, auto[1:], (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape and torch.isfinite(g.float()).all()
+        _close(g, p, dtype)
+        _close(g, a, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,lq,lk,d", [(4, 8, 729, 128, 40), (3, 4, 40, 150, 64),
+                                         (2, 3, 70, 300, 48), (2, 4, 16, 128, 320)])
+def test_flash_attention_backward_masks(card, dtype, b, h, lq, lk, d):
+    """A sample with every key masked (uniform softmax: its scores are all
+    -1e9) and one with all keys but one masked: through FlashSDPA on the
+    card (one launch each way) against autograd of sdpa_plain, with a
+    strided incoming gradient; a second backward gives the same bits."""
+    q, k, v, bias, gy = _flash_operands(card, dtype, b, h, lq, lk, d, "dead sample")
+    assert not gy.is_contiguous()
+    ops.reset_launch_counts()
+    got = _grads(lambda q, k, v: ops.sdpa(q, k, v, bias=bias), (q, k, v), gy)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1 and counts["flash_attention_bwd"] == 1, counts
+    again = _grads(lambda q, k, v: ops.sdpa(q, k, v, bias=bias), (q, k, v), gy)
+    ref = _grads(lambda q, k, v: flash_attention.sdpa_plain(q, k, v, bias=bias,
+                                                            scale=d ** -0.5), (q, k, v), gy)
+    for g, a, r in zip(got, again, ref):
+        assert torch.equal(g, a)
+        _close(g, r, dtype)
+    # the dead sample's output is the mean of its values
+    _close(got[0][0], v[0].float().mean(dim=1, keepdim=True).expand(h, lq, d), dtype)
+
+
+def test_flash_attention_backward_launches_no_plain_version(card, monkeypatch):
+    """FlashSDPA's backward on the card launches the backward kernel and
+    calls none of the plain versions, in bf16 and fp32; an operand the
+    kernel does not take raises."""
+    calls = []
+    for name in ("sdpa_plain", "sdpa_lse_plain", "sdpa_backward_plain", "_plain"):
+        real = getattr(flash_attention, name)
+        monkeypatch.setattr(flash_attention, name,
+                            lambda *a, _r=real, _n=name, **kw: calls.append(_n) or _r(*a, **kw))
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, bias, gy = _flash_operands(card, dtype, 2, 4, 49, 77, 64, "third")
+        xs = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        ops.reset_launch_counts()
+        ops.sdpa(*xs, bias=bias).backward(gy)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["flash_attention_bwd"] == 1
+        assert all(x.grad is not None for x in xs)
+    assert calls == []
+    q, k, v, bias, gy = _flash_operands(card, torch.bfloat16, 1, 2, 8, 8, 16, "none")
+    o, lse = flash_attention._launch(q, k, v, None, 0.25, lse=True)
+    with pytest.raises(TypeError):                                  # dO in another dtype
+        flash_attention._launch_bwd(q, k, v, o, gy.float(), lse, None, 0.25)
+    with pytest.raises(ValueError):                                 # lse on the CPU
+        flash_attention._launch_bwd(q, k, v, o, gy, lse.cpu(), None, 0.25)
 
 
 def test_memory_and_timing_utils_on_the_card(card):

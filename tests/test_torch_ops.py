@@ -488,10 +488,16 @@ def test_decoder_residual_reaches_the_spatial_block_in_its_own_dtype(monkeypatch
 
 
 def test_launch_counters_untouched_on_cpu():
-    """Plain versions on the CPU are not kernel launches."""
+    """Plain versions on the CPU are not kernel launches, forward or
+    backward (FlashSDPA on the CPU takes the plain backward)."""
+    from psg_tpu_torch.ops import flash_attention
+
     ops.reset_launch_counts()
     x = torch.randn(1, 4, 8)
     ops.group_norm_silu({"scale": torch.ones(8), "bias": torch.zeros(8)}, x, 4)
     ops.sdpa(torch.randn(1, 2, 4, 8), torch.randn(1, 2, 4, 8), torch.randn(1, 2, 4, 8))
+    q = torch.randn(1, 2, 4, 8, requires_grad=True)
+    flash_attention.flash_sdpa_autograd(q, q, q).sum().backward()
+    assert q.grad is not None
     assert ops.launch_counts() == {"group_norm_silu": 0, "flash_attention": 0,
-                                   "spatial_xattn": 0}
+                                   "spatial_xattn": 0, "flash_attention_bwd": 0}

@@ -23,10 +23,15 @@ FFN) of boolean masks or ``None`` for a block without attention.  The JAX
 package draws block ``i``'s triple from ``split(split(dropout_key, (2L + 1)B
 + 1)[i], 3)`` (L levels, B blocks a level; the last 2B keys go unused); the
 tests pass those masks in.
+
+Spans (``utils.profiling``): ``psg.unet.eval`` around an evaluation, and
+inside it one a level, ``psg.unet.enc<i>``, ``psg.unet.mid`` and
+``psg.unet.dec<i>``; a level's down or up convolution is part of it.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import torch
@@ -47,6 +52,7 @@ from psg_tpu_torch.nn.layers import (
     linear_init,
 )
 from psg_tpu_torch.nn.resize import bilinear_resize
+from psg_tpu_torch.utils.profiling import span
 
 
 class UNetSpec(NamedTuple):
@@ -250,6 +256,17 @@ def unet_block_count(spec: UNetSpec) -> int:
     return 2 * len(spec.channels) * spec.blocks_per_level + 1
 
 
+_SPAN_EVAL = "psg.unet.eval"
+_SPAN_MID = "psg.unet.mid"
+
+
+@functools.lru_cache(maxsize=None)
+def _level_spans(nlvl: int):
+    """The span names of the encoder and decoder levels, by level."""
+    return (tuple(f"psg.unet.enc{i}" for i in range(nlvl)),
+            tuple(f"psg.unet.dec{i}" for i in range(nlvl)))
+
+
 def unet_apply(params, noisy_latent, timesteps, text_seq, spec: UNetSpec, *,
                text_mask=None, dtype=None, dropout=None):
     """Predict noise.  noisy_latent: [B, 27, 27, latent_dim]; timesteps: [B];
@@ -266,43 +283,48 @@ def unet_apply(params, noisy_latent, timesteps, text_seq, spec: UNetSpec, *,
                              f"{unet_block_count(spec)} UNet blocks")
         drops = iter(dropout)
 
-    t = sinusoidal_time_embedding(timesteps, spec.time_emb_dim)
-    tm = params["time_mlp"]
-    t = F.silu(linear(tm["l1"], t, dtype=dtype))
-    t = F.silu(linear(tm["l2"], t, dtype=dtype))
-    time_emb = linear(tm["l3"], t, dtype=dtype)
+    enc_spans, dec_spans = _level_spans(nlvl)
+    with span(_SPAN_EVAL):
+        t = sinusoidal_time_embedding(timesteps, spec.time_emb_dim)
+        tm = params["time_mlp"]
+        t = F.silu(linear(tm["l1"], t, dtype=dtype))
+        t = F.silu(linear(tm["l2"], t, dtype=dtype))
+        time_emb = linear(tm["l3"], t, dtype=dtype)
 
-    tp = pooled_text(text_seq, text_mask)
-    tb = text_bias_from_mask(text_mask)
+        tp = pooled_text(text_seq, text_mask)
+        tb = text_bias_from_mask(text_mask)
 
-    x = conv2d(params["init_conv"], noisy_latent, stride=1, padding=1, dtype=dtype)
-    skips = []
-    for lvl in range(nlvl):
-        if lvl > 0:
-            x = conv2d(params[f"down{lvl}"], x, stride=2, padding=1, dtype=dtype)
-        for blk in params[f"enc{lvl}"]:
-            x = unetblock_apply(blk, x, time_emb, tp, text_seq, spec,
-                                cin=ch[lvl], cout=ch[lvl], text_bias=tb, dtype=dtype,
+        x = conv2d(params["init_conv"], noisy_latent, stride=1, padding=1, dtype=dtype)
+        skips = []
+        for lvl in range(nlvl):
+            with span(enc_spans[lvl]):
+                if lvl > 0:
+                    x = conv2d(params[f"down{lvl}"], x, stride=2, padding=1, dtype=dtype)
+                for blk in params[f"enc{lvl}"]:
+                    x = unetblock_apply(blk, x, time_emb, tp, text_seq, spec,
+                                        cin=ch[lvl], cout=ch[lvl], text_bias=tb,
+                                        dtype=dtype, dropout=next(drops))
+                skips.append(x)
+
+        with span(_SPAN_MID):
+            x = unetblock_apply(params["middle"], x, time_emb, tp, text_seq, spec,
+                                cin=ch[-1], cout=ch[-1], text_bias=tb, dtype=dtype,
                                 dropout=next(drops))
-        skips.append(x)
 
-    x = unetblock_apply(params["middle"], x, time_emb, tp, text_seq, spec,
-                        cin=ch[-1], cout=ch[-1], text_bias=tb, dtype=dtype,
-                        dropout=next(drops))
+        for lvl in reversed(range(nlvl)):
+            with span(dec_spans[lvl]):
+                skip = skips.pop()
+                # the same skip tensor is concatenated before BOTH decoder blocks
+                for blk in params[f"dec{lvl}"]:
+                    x = torch.cat([x, skip], dim=-1)
+                    x = unetblock_apply(blk, x, time_emb, tp, text_seq, spec,
+                                        cin=2 * ch[lvl], cout=ch[lvl], text_bias=tb,
+                                        dtype=dtype, dropout=next(drops))
+                if lvl > 0:
+                    target = spec.spatial[lvl - 1]
+                    x = bilinear_resize(x, (target, target))
+                    x = conv2d(params[f"up{lvl}"], x, stride=1, padding=1, dtype=dtype)
 
-    for lvl in reversed(range(nlvl)):
-        skip = skips.pop()
-        # the same skip tensor is concatenated before BOTH decoder blocks
-        for blk in params[f"dec{lvl}"]:
-            x = torch.cat([x, skip], dim=-1)
-            x = unetblock_apply(blk, x, time_emb, tp, text_seq, spec,
-                                cin=2 * ch[lvl], cout=ch[lvl], text_bias=tb,
-                                dtype=dtype, dropout=next(drops))
-        if lvl > 0:
-            target = spec.spatial[lvl - 1]
-            x = bilinear_resize(x, (target, target))
-            x = conv2d(params[f"up{lvl}"], x, stride=1, padding=1, dtype=dtype)
-
-    x = ops.group_norm_silu(params["final_norm"], x, largest_group_count(ch[0]),
-                            eps=1e-5)
-    return conv2d(params["final_conv"], x, stride=1, padding=1, dtype=dtype)
+        x = ops.group_norm_silu(params["final_norm"], x, largest_group_count(ch[0]),
+                                eps=1e-5)
+        return conv2d(params["final_conv"], x, stride=1, padding=1, dtype=dtype)

@@ -10,7 +10,8 @@ module, a plain PyTorch version of the same function:
 
 A wrapper takes the plain version for a tensor on the CPU, and for a CUDA
 tensor launches its kernel or raises; nothing falls back.  Each kernel
-library counts its launches (``launch_counts``).
+library counts its launches (``launch_counts``; the counters
+``launch.<library>`` of ``utils.profiling``).
 
 Training differentiates every kernel through a ``torch.autograd.Function``
 (``fused_norm.GroupNormSiLU``, ``flash_attention.FlashSDPA``,
@@ -34,6 +35,7 @@ from __future__ import annotations
 import torch
 
 from psg_tpu_torch.ops import flash_attention, fused_norm, spatial_xattn
+from psg_tpu_torch.utils import profiling
 
 KERNELS = (fused_norm.KERNEL, flash_attention.KERNEL, spatial_xattn.KERNEL,
            flash_attention.BWD_KERNEL)
@@ -44,8 +46,7 @@ def launch_counts():
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
-        k.launches = 0
+    profiling.reset_counts("launch.")
 
 
 def group_norm_silu(params, x, num_groups: int, *, eps: float = 1e-5):

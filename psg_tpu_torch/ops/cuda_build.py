@@ -21,6 +21,8 @@ from typing import Dict, Iterable
 
 import torch
 
+from psg_tpu_torch.utils import profiling
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "psg_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,14 +44,20 @@ def cuda_tool(name: str) -> str:
 
 class KernelLibrary:
     """One ``csrc/<source>`` shared library, its C entry points and the
-    count of kernel launches made through it."""
+    count of kernel launches made through it from the host (the counter
+    ``launch.<name>`` of ``utils.profiling``: a launch captured in a CUDA
+    graph counts once, its replays not at all)."""
 
     def __init__(self, name: str, source: str, signatures: Dict[str, tuple]):
         self.name = name
         self.source = CSRC / source
         self.signatures = signatures  # C function -> (restype, argtypes)
-        self.launches = 0
+        self.counter = f"launch.{name}"
         self._lib = None
+
+    @property
+    def launches(self) -> int:
+        return profiling.counts().get(self.counter, 0)
 
     @property
     def path(self) -> Path:
@@ -102,7 +110,7 @@ class KernelLibrary:
         if rc != 0:
             msg = self.lib().psg_error_string(rc).decode()
             raise RuntimeError(f"{self.name}: kernel launch failed: {msg} ({rc})")
-        self.launches += 1
+        profiling.count(self.counter)
 
 
 def build_all(libs: Iterable[KernelLibrary]) -> Dict[str, dict]:

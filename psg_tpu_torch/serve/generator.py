@@ -36,6 +36,11 @@ each rank runs its rows with the request's draws made at the global shape
 (``core/draws.py``), and an all-gather returns the whole batch on every
 rank; the images equal the single-process ones.  The other public methods
 run every row on every rank.
+
+Spans (``utils.profiling``): ``psg.serve.request`` around ``_serve``, which
+every entry point goes through; inside it, a pass at a time,
+``psg.serve.text``, ``psg.serve.sampler`` and ``psg.serve.vae_decode``, and
+``psg.serve.vae_encode`` before each image-seeded pass.
 """
 
 from __future__ import annotations
@@ -82,6 +87,7 @@ from psg_tpu_torch.models.vae import (
 from psg_tpu_torch.nn.layers import prepare_weights
 from psg_tpu_torch.text.tokenizer import WordPieceTokenizer
 from psg_tpu_torch.utils.images import pil_to_array, tensor_to_pil
+from psg_tpu_torch.utils.profiling import span
 
 _SAMPLERS = {
     "ddim": ddim_sample,              # quality default: correct striding + CFG
@@ -92,6 +98,11 @@ _SAMPLERS = {
     "x0": ddpm_sample_x0,
 }
 _GUIDED = ("ddim", "dpmpp")
+_SPAN_REQUEST = "psg.serve.request"
+_SPAN_TEXT = "psg.serve.text"
+_SPAN_SAMPLER = "psg.serve.sampler"
+_SPAN_VAE_DECODE = "psg.serve.vae_decode"
+_SPAN_VAE_ENCODE = "psg.serve.vae_encode"
 RETRIEVAL_MODES = ("hybrid", "embed", "lexical")
 
 
@@ -307,9 +318,10 @@ class PokemonGenerator:
         """images [N, H, W, 3] in [-1, 1] -> reparameterized latents [N, h, w,
         latent_dim] in the encoder's output dtype; ``noise`` (fp32, the
         latent's shape) replaces the draw."""
-        mu, logvar = vae_encoder_apply(params["vae"]["encoder"], images,
-                                       dtype=self.compute_dtype)
-        return reparameterize(generator, mu, logvar, noise=noise)
+        with span(_SPAN_VAE_ENCODE):
+            mu, logvar = vae_encoder_apply(params["vae"]["encoder"], images,
+                                           dtype=self.compute_dtype)
+            return reparameterize(generator, mu, logvar, noise=noise)
 
     @torch.no_grad()
     def _generate_impl(self, params, generator, text_ids, text_mask,
@@ -318,8 +330,9 @@ class PokemonGenerator:
         """ids/mask [N, S] on the device -> images [N, H, W, 3] in [-1, 1].
         ``noises`` ([evals, N, h, w, c]) replaces the per-step draws of the
         four DDPM-family samplers."""
-        text_emb = text_encoder_apply(params["text"], text_ids, text_mask,
-                                      self.bert_cfg, dtype=self.compute_dtype)
+        with span(_SPAN_TEXT):
+            text_emb = text_encoder_apply(params["text"], text_ids, text_mask,
+                                          self.bert_cfg, dtype=self.compute_dtype)
 
         def denoise(x, t):
             out = unet_apply(params["unet"], x.to(text_emb.dtype), t, text_emb,
@@ -330,24 +343,26 @@ class PokemonGenerator:
 
         shape = (num, self.latent_size, self.latent_size, self.cfg.model.latent_dim)
         fn = _SAMPLERS[sampler]
-        if sampler in _GUIDED:
-            latents = fn(self._guided(params, denoise, text_emb, text_mask),
-                         self.schedule, generator, shape=shape,
-                         initial_latent=initial_latent, num_inference_steps=steps,
-                         clip_x0=self.cfg.model.latent_clamp)
-        elif sampler == "fast":
-            latents = fn(denoise, self.schedule, generator, shape=shape,
-                         initial_latent=initial_latent,
-                         stride=fast_stride(self.schedule.num_timesteps, steps),
-                         noises=noises)
-        else:  # renoise, ddpm, x0: unguided, strided to ``steps``
-            latents = fn(denoise, self.schedule, generator, shape=shape,
-                         initial_latent=initial_latent, num_inference_steps=steps,
-                         noises=noises)
-        return vae_decode(params["vae"], latents.to(text_emb.dtype), text_emb,
-                          text_bias=text_bias_from_mask(text_mask),
-                          image_size=self.cfg.data.image_size,
-                          dtype=self.compute_dtype)
+        with span(_SPAN_SAMPLER):
+            if sampler in _GUIDED:
+                latents = fn(self._guided(params, denoise, text_emb, text_mask),
+                             self.schedule, generator, shape=shape,
+                             initial_latent=initial_latent, num_inference_steps=steps,
+                             clip_x0=self.cfg.model.latent_clamp)
+            elif sampler == "fast":
+                latents = fn(denoise, self.schedule, generator, shape=shape,
+                             initial_latent=initial_latent,
+                             stride=fast_stride(self.schedule.num_timesteps, steps),
+                             noises=noises)
+            else:  # renoise, ddpm, x0: unguided, strided to ``steps``
+                latents = fn(denoise, self.schedule, generator, shape=shape,
+                             initial_latent=initial_latent, num_inference_steps=steps,
+                             noises=noises)
+        with span(_SPAN_VAE_DECODE):
+            return vae_decode(params["vae"], latents.to(text_emb.dtype), text_emb,
+                              text_bias=text_bias_from_mask(text_mask),
+                              image_size=self.cfg.data.image_size,
+                              dtype=self.compute_dtype)
 
     def _guided(self, params, denoise, text_emb, text_mask):
         """The denoise function DDIM and DPM-Solver++ run: ``denoise`` itself
@@ -428,20 +443,21 @@ class PokemonGenerator:
         mesh the UNet is gathered whole for the request."""
         draws = draws or {}
         params = self.params
-        if self.mesh_run is not None:
-            params = dict(params, unet=self.mesh_run.gather(params["unet"]))
-        if init_images is not None:
-            imgs = self._img2img(init_images, ids, mask, generator, steps=steps,
-                                 num=num, sampler=sampler, strength=init_strength,
-                                 draws=draws.get("init"), params=params)
-        else:
-            imgs = self._generate_impl(params, generator, ids, mask,
-                                       draws.get("prior"), steps=steps, num=num,
-                                       sampler=sampler)
-        return self._restart_passes(imgs, ids, mask, generator, steps=steps, num=num,
-                                    sampler=sampler, restarts=restarts,
-                                    strength=restart_strength,
-                                    draws=draws.get("restarts"), params=params)
+        with span(_SPAN_REQUEST):
+            if self.mesh_run is not None:
+                params = dict(params, unet=self.mesh_run.gather(params["unet"]))
+            if init_images is not None:
+                imgs = self._img2img(init_images, ids, mask, generator, steps=steps,
+                                     num=num, sampler=sampler, strength=init_strength,
+                                     draws=draws.get("init"), params=params)
+            else:
+                imgs = self._generate_impl(params, generator, ids, mask,
+                                           draws.get("prior"), steps=steps, num=num,
+                                           sampler=sampler)
+            return self._restart_passes(imgs, ids, mask, generator, steps=steps,
+                                        num=num, sampler=sampler, restarts=restarts,
+                                        strength=restart_strength,
+                                        draws=draws.get("restarts"), params=params)
 
     # -- retrieval -------------------------------------------------------------
 

@@ -24,7 +24,8 @@ caption-variant index (stage 2 with ``extra.caption_augment``), then the
 loss's own draws.  Every one of them can be given instead (``draws``:
 ``uniforms`` [n] or ``idx`` [b], ``augment`` as ``draw_augment_params``
 returns it, ``v`` [b], and the loss's keys), which is how the tests inject
-the JAX package's.
+the JAX package's.  The span ``psg.train.fast_batch`` covers
+``_fast_batch``.
 """
 
 from __future__ import annotations
@@ -41,7 +42,9 @@ from psg_tpu_torch.data.device_augment import (
     draw_augment_params,
     normalize_batch,
 )
+from psg_tpu_torch.utils.profiling import span
 
+_SPAN_FAST_BATCH = "psg.train.fast_batch"
 _OPTIONAL = (("clip_ids", "clip_mask"), ("text_ids_aug", "text_mask_aug"))
 
 
@@ -138,34 +141,36 @@ class FastPath:
     def _fast_batch(self, draws=None) -> Dict[str, torch.Tensor]:
         """One step's batch, drawn and gathered on the device."""
         d = draws or {}
-        data, gen = self._train_data, self.state.rng
-        n, bs = data["images"].shape[0], self.cfg.data.batch_size
-        idx = d.get("idx")
-        if idx is None:
-            idx = draw_minibatch(gen, n, bs, device=self.device, uniforms=d.get("uniforms"))
-        idx = torch.as_tensor(idx, device=self.device).long()
-        images = data["images"][idx]
-        if self.cfg.data.augment:
-            params = d.get("augment")
-            if params is None:
-                params = draw_augment_params(gen, idx.shape[0], device=self.device)
-            image = augment_batch(images, params, self.ds.background)
-        else:
-            image = normalize_batch(images)
-        batch = {"image": image}
-        if self.caption_augment > 0:
-            v = d.get("v")
-            if v is None:
-                v = torch.randint(0, self.caption_augment, (idx.shape[0],), generator=gen,
-                                  device=self.device)
-            v = torch.as_tensor(v, device=self.device).long()
-            batch["text_ids"] = data["text_ids_aug"][idx, v]
-            batch["text_mask"] = data["text_mask_aug"][idx, v]
-        else:
-            for k in ("text_ids", "text_mask", "text_emb", "clip_ids", "clip_mask"):
-                if k in data:
-                    batch[k] = data[k][idx]
-        return batch
+        with span(_SPAN_FAST_BATCH):
+            data, gen = self._train_data, self.state.rng
+            n, bs = data["images"].shape[0], self.cfg.data.batch_size
+            idx = d.get("idx")
+            if idx is None:
+                idx = draw_minibatch(gen, n, bs, device=self.device,
+                                     uniforms=d.get("uniforms"))
+            idx = torch.as_tensor(idx, device=self.device).long()
+            images = data["images"][idx]
+            if self.cfg.data.augment:
+                params = d.get("augment")
+                if params is None:
+                    params = draw_augment_params(gen, idx.shape[0], device=self.device)
+                image = augment_batch(images, params, self.ds.background)
+            else:
+                image = normalize_batch(images)
+            batch = {"image": image}
+            if self.caption_augment > 0:
+                v = d.get("v")
+                if v is None:
+                    v = torch.randint(0, self.caption_augment, (idx.shape[0],),
+                                      generator=gen, device=self.device)
+                v = torch.as_tensor(v, device=self.device).long()
+                batch["text_ids"] = data["text_ids_aug"][idx, v]
+                batch["text_mask"] = data["text_mask_aug"][idx, v]
+            else:
+                for k in ("text_ids", "text_mask", "text_emb", "clip_ids", "clip_mask"):
+                    if k in data:
+                        batch[k] = data[k][idx]
+            return batch
 
     def _fast_epoch(self, step: Callable, draws: Optional[List[Dict]] = None) -> Dict:
         """``step(batch, draws)`` over ``_fast_len`` drawn batches

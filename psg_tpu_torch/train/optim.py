@@ -26,7 +26,9 @@ Per step, in optax's order:
 A ``frozen`` group gets no update and has no state.
 
 The skip and non-finite decisions are made on the host: one device-to-host
-read a step (the finite flag and the norms, which the trainer logs anyway).
+read a step (the finite flag and the norms, which the trainer logs anyway),
+counted as ``host_reads`` (``utils.profiling``) inside the span
+``psg.optim.stats``; the span ``psg.optim.adam`` covers the groups' updates.
 On a mesh they come from the reduced gradient, so every rank decides the
 same: under data parallelism each rank holds the averaged gradient whole;
 under tensor parallelism (``layout``, ``parallel/sharding.py``) a sharded
@@ -43,6 +45,10 @@ import torch
 
 from psg_tpu_torch.core import tree
 from psg_tpu_torch.core.stability import global_norm, tree_finite
+from psg_tpu_torch.utils.profiling import HOST_READS, count, span
+
+_SPAN_STATS = "psg.optim.stats"
+_SPAN_ADAM = "psg.optim.adam"
 
 Schedule = Callable[[int], float]
 
@@ -208,14 +214,16 @@ class Optimizer:
         g_leaves = [by_path[path] for path in paths]
         members = {name: [i for i, _, _ in self._members(params, name)]
                    for name in self.groups}
-        if layout is not None and layout.sharded:
-            vals = _sharded_stats(paths, g_leaves, members, layout)
-        else:
-            norms = [global_norm([g_leaves[i] for i in idx]).to(g_leaves[0].device)
-                     for idx in members.values()]
-            vals = torch.stack([tree_finite(g_leaves).float().to(g_leaves[0].device),
-                                global_norm(g_leaves).to(g_leaves[0].device),
-                                *norms]).tolist()       # the step's one host read
+        with span(_SPAN_STATS):
+            if layout is not None and layout.sharded:
+                vals = _sharded_stats(paths, g_leaves, members, layout)
+            else:
+                norms = [global_norm([g_leaves[i] for i in idx]).to(g_leaves[0].device)
+                         for idx in members.values()]
+                count(HOST_READS)
+                vals = torch.stack([tree_finite(g_leaves).float().to(g_leaves[0].device),
+                                    global_norm(g_leaves).to(g_leaves[0].device),
+                                    *norms]).tolist()       # the step's one host read
         finite, grad_norm = vals[0] == 1.0, vals[1]
         group_norm = dict(zip(members, vals[2:]))
 
@@ -224,15 +232,16 @@ class Optimizer:
         state["last_finite"] = finite
         applied = []
         if finite or state["notfinite_count"] > self.max_consecutive_errors:
-            for name, idx in members.items():
-                gs = state["groups"][name]
-                gn = group_norm[name]
-                if self.skip_grad_norm is not None and not gn <= self.skip_grad_norm:
-                    gs["skipped"] += 1
-                    continue
-                self._adam(name, gs, [paths[i] for i in idx], [p_leaves[i] for i in idx],
-                           [g_leaves[i] for i in idx], gn)
-                applied.append(name)
+            with span(_SPAN_ADAM):
+                for name, idx in members.items():
+                    gs = state["groups"][name]
+                    gn = group_norm[name]
+                    if self.skip_grad_norm is not None and not gn <= self.skip_grad_norm:
+                        gs["skipped"] += 1
+                        continue
+                    self._adam(name, gs, [paths[i] for i in idx],
+                               [p_leaves[i] for i in idx], [g_leaves[i] for i in idx], gn)
+                    applied.append(name)
         return {"grad_norm": grad_norm, "finite": finite, "applied": applied}
 
     def _adam(self, name, gs, paths, ps, gs_, gn: float) -> None:
@@ -298,6 +307,7 @@ def _sharded_stats(paths, g_leaves, members, layout) -> list:
     dist.all_reduce(vec, group=layout.group)
     bad = vec[0] + rep[0][0]
     norms = (vec[1:] + torch.stack([sq for _, sq in rep])).sqrt()
+    count(HOST_READS)
     return torch.cat([(bad == 0).float()[None], norms]).tolist()
 
 

@@ -41,6 +41,12 @@ default); the frozen VAE and text encoder are whole on every rank.  Loss,
 gradients, parameters, the EMA and checkpoints then equal the
 single-process run's.  The fast path is off on a mesh, as in JAX.
 
+Spans (``utils.profiling``): ``psg.train.step`` around ``_step``; inside it
+``psg.train.grads`` (``_grads``) around ``psg.train.forward`` (the loss) and
+``psg.train.backward`` (``torch.autograd.grad``), and
+``psg.train.optimizer`` (``_apply_update``) around the optimizer's own
+spans and ``psg.train.ema``.
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
@@ -97,7 +103,14 @@ from psg_tpu_torch.train.optim import (
 )
 from psg_tpu_torch.train.state import TrainState
 from psg_tpu_torch.utils.images import save_image_grid
+from psg_tpu_torch.utils.profiling import span
 
+_SPAN_STEP = "psg.train.step"
+_SPAN_GRADS = "psg.train.grads"
+_SPAN_FORWARD = "psg.train.forward"
+_SPAN_BACKWARD = "psg.train.backward"
+_SPAN_OPTIMIZER = "psg.train.optimizer"
+_SPAN_EMA = "psg.train.ema"
 _VAL_SEED_OFFSET = 2    # the validation draws' generator: cfg.seed + 2
 _SAMPLE_SEED_OFFSET = 20_000   # sample grid of epoch e: cfg.seed + 20000 + e
 
@@ -312,32 +325,38 @@ class DiffusionTrainer(FastPath):
         shards) averaged over the mesh."""
         st = self.state
         mr = self.mesh_run
-        gen, params = st.rng, st.params
-        if mr is not None:
-            gen, draws, params = mr.step_inputs(st, batch["image"].shape[0], draws)
-        loss = self._noise_loss(params, self.frozen, batch, gen, draws=draws,
-                                dropout=self._dropout(draws, gen))
-        paths, leaves = zip(*tree.items(params))
-        grads = torch.autograd.grad(loss, leaves)
-        loss = loss.detach()
-        if mr is not None:
-            grads = mr.reduce_grads(paths, grads)
-            loss = mr.mean(loss)
-        it = iter(grads)
-        return loss, tree.map(lambda _: next(it), st.params)
+        with span(_SPAN_GRADS):
+            gen, params = st.rng, st.params
+            if mr is not None:
+                gen, draws, params = mr.step_inputs(st, batch["image"].shape[0], draws)
+            with span(_SPAN_FORWARD):
+                loss = self._noise_loss(params, self.frozen, batch, gen, draws=draws,
+                                        dropout=self._dropout(draws, gen))
+            paths, leaves = zip(*tree.items(params))
+            with span(_SPAN_BACKWARD):
+                grads = torch.autograd.grad(loss, leaves)
+            loss = loss.detach()
+            if mr is not None:
+                grads = mr.reduce_grads(paths, grads)
+                loss = mr.mean(loss)
+            it = iter(grads)
+            return loss, tree.map(lambda _: next(it), st.params)
 
     def _apply_update(self, loss, grads) -> Dict:
         """Optimizer step, then the EMA from the updated params."""
         st = self.state
-        stats = self.tx.update(st.params, grads, st.opt_state, layout=st.layout)
-        if self.ema_decay > 0:
-            ema_update(st.ema, st.params, self.ema_decay)
+        with span(_SPAN_OPTIMIZER):
+            stats = self.tx.update(st.params, grads, st.opt_state, layout=st.layout)
+            if self.ema_decay > 0:
+                with span(_SPAN_EMA):
+                    ema_update(st.ema, st.params, self.ema_decay)
         st.step += 1
         return {"loss": loss, "grad_norm": stats["grad_norm"]}
 
     def _step(self, batch, draws=None) -> Dict:
-        loss, grads = self._grads(batch, draws)
-        return self._apply_update(loss, grads)
+        with span(_SPAN_STEP):
+            loss, grads = self._grads(batch, draws)
+            return self._apply_update(loss, grads)
 
     def _val_generator(self) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(

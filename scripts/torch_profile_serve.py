@@ -17,7 +17,13 @@ the profiled run's), the summed device time of its kernels,
 their number, the device's idle share (1 - kernel time / wall), the device
 time of the spatial cross-attention kernel, and the device time and kernel
 count by kernel family (``copy`` is Tensor.copy_: ``.contiguous()`` and
-dtype casts).  Needs one CUDA card; imports no JAX.
+dtype casts), and the program's ``psg.*`` spans in the profiled run
+(``spans``: ``utils.profiling.span_table``; a request's
+``psg.serve.request``, ``text``, ``sampler``, ``vae_decode`` and
+``vae_encode``, ``psg.unet.eval`` and its nine levels, each with its count
+and, a span on average, host ms under the profiler, device ms, launch calls
+that reached the device and the device's idle ms inside it).  Needs one CUDA
+card; imports no JAX.
 """
 
 import argparse
@@ -33,6 +39,8 @@ from torch.profiler import ProfilerActivity, profile
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+
+from psg_tpu_torch.utils import profiling  # noqa: E402
 
 FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("gn_silu (ours)", ("gn_cluster", "gn_chunk_stats", "gn_chunk_apply")),
@@ -73,8 +81,7 @@ def profiled(name, fn, trace=None):
         fn()
         torch.cuda.synchronize()
         wall_profiled = time.perf_counter() - t
-    if trace:
-        prof.export_chrome_trace(trace)
+    spans = profiling.profile_spans(prof, trace)
     by_family, count_by_family = defaultdict(float), defaultdict(int)
     kernels, launches, top = 0.0, 0, []
     for evt in prof.key_averages():
@@ -94,7 +101,8 @@ def profiled(name, fn, trace=None):
            "by_family_ms": {k: v / 1e3 for k, v in sorted(by_family.items(),
                                                           key=lambda kv: -kv[1])},
            "by_family_kernels": dict(count_by_family),
-           "top": [{"ms": us / 1e3, "count": n, "kernel": k} for us, n, k in top[:8]]}
+           "top": [{"ms": us / 1e3, "count": n, "kernel": k} for us, n, k in top[:8]],
+           "spans": spans}
     print(json.dumps(rec), flush=True)
     return rec
 

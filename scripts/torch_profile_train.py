@@ -23,7 +23,12 @@ backward (the script wraps them; the backward runs on the current stream, so
 the interval holds exactly its kernels and the gaps between them), summed per
 step, with what that backward is: FlashSDPA's launches the backward kernel
 (csrc/flash_attention_bwd.cu), GroupNormSiLU's and SpatialXattn's recompute
-their plain versions.  Then the step's samples/s and peak device memory.
+their plain versions; and the program's ``psg.*`` spans in the profiled
+run (``spans``, as ``scripts/torch_profile_serve.py`` prints them: stage
+2's ``psg.train.step``, ``grads``, ``forward``, ``backward``,
+``optimizer``, ``ema``, the fast path's ``fast_batch``, the optimizer's
+``psg.optim.stats`` and ``adam``, and the UNet's).  Then the step's
+samples/s and peak device memory.
 
 Parts.  Stage 2: the forward to the loss (frozen text and VAE encoders,
 q_sample, the UNet), the backward, the optimizer and the EMA.  Stage 1: the
@@ -71,6 +76,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "scripts"))
 
+from psg_tpu_torch.utils import profiling  # noqa: E402
 from torch_profile_serve import family  # noqa: E402
 
 
@@ -157,8 +163,7 @@ def measure(name, fn, reps, setup=None, trace=None):
         fn(arg)
         torch.cuda.synchronize()
         wall_profiled = time.perf_counter() - t
-    if trace:
-        prof.export_chrome_trace(trace)
+    spans = profiling.profile_spans(prof, trace)
     by_family, count_by_family = defaultdict(float), defaultdict(int)
     kernels, launches, top, host = 0.0, 0, [], []
     runtime = defaultdict(int)
@@ -188,7 +193,8 @@ def measure(name, fn, reps, setup=None, trace=None):
            "by_family_ms": {k: v / 1e3 for k, v in sorted(by_family.items(),
                                                           key=lambda kv: -kv[1])},
            "by_family_kernels": dict(count_by_family),
-           "top": [{"ms": us / 1e3, "count": n, "kernel": k} for us, n, k in top[:10]]}
+           "top": [{"ms": us / 1e3, "count": n, "kernel": k} for us, n, k in top[:10]],
+           "spans": spans}
     print(json.dumps(rec), flush=True)
     return rec
 
@@ -211,7 +217,8 @@ def profile_stage2(cfg, args):
     leaves = tree.leaves(st.params)
 
     def forward(_):
-        return tr._noise_loss(st.params, tr.frozen, batch, st.rng, dropout=tr._dropout(None))
+        return tr._noise_loss(st.params, tr.frozen, batch, st.rng,
+                              dropout=tr._dropout(None, st.rng))
 
     step = measure(f"train step (batch {bs})", lambda _: tr._step(batch), args.steps,
                    trace=args.trace)

@@ -45,7 +45,9 @@ prints one JSON line per phase:
                 320/640/1280/1280, full VAE, 215x215, text_len 128) with random
                 weights from the config's seed: generate_batch of 4 prompts
                 (DDIM 20 steps, CFG 2.0 with a negative prompt) and
-                generate_from_text (DPM-Solver++ 10 steps) twice with one seed.
+                generate_from_text (DPM-Solver++ 10 steps) twice with one seed;
+                the counted run starts from an empty UNet graph cache, so each
+                batch shape's first evaluation captures its CUDA graph.
 5. ``serve_paths_full_width``  the same generator, and a sprite corpus of 8
                 made from a seed in a temporary directory (the config's CSV
                 and image paths point there): generate_from_image_and_text on
@@ -196,8 +198,11 @@ Phase 6c runs after phase 7: its frozen VAE and text encoder come from
 phase 7's checkpoint, and serving resolves the pair.
 In phases 4-9 images must be finite and of the right shape, a seed must
 repeat its image, and every request's kernel launches must equal the count
-the model's structure predicts (``predicted_launches``); each phase's counts
-are set to 0 just before its requests and read just after them.
+the model's structure predicts (``predicted_launches``; a serving UNet
+evaluation that captures its CUDA graph launches its kernels three times),
+and its UNet graph counters the captures and replays that the requests'
+batch shapes predict (``UNetGraphKeys``); each phase's counts are set to 0
+just before its requests and read just after them.
 
 Phase 2 holds GroupNorm+SiLU at the decoder's and the UNet's sites and, at
 batch 1 and 4, at the VAE encoder's (107^2x32 with one channel a group,
@@ -779,7 +784,51 @@ def unet_evals(gen, sampler, steps):
                 "renoise": sampling.renoise_timesteps}[sampler](T, steps))
 
 
-def predicted_launches(gen, n_unet_evals, *, text_encodes=1, encodes=0, decodes=1):
+def unet_graph_counts():
+    """The counters of the serving UNet's CUDA graphs (``models.unet``)."""
+    from psg_tpu_torch.utils import profiling
+
+    counts = profiling.counts()
+    return {k: counts.get(f"unet_graph.{k}", 0) for k in ("capture", "replay", "eager")}
+
+
+def graph_delta(before):
+    """``unet_graph_counts()`` now, less ``before``."""
+    return {k: v - before[k] for k, v in unet_graph_counts().items()}
+
+
+class UNetGraphKeys:
+    """What a generator's UNet graph cache does, kept from its requests'
+    structure alone: an evaluation's key is its UNet batch, the request's
+    prompts and twice that under fused CFG (DDIM and DPM++ at a guidance
+    above 0); the text is padded to ``text_len`` and the dtypes are the
+    generator's.  The cache holds the last ``_GRAPHS_KEPT`` keys used.  A
+    request's first evaluation at a key the cache lacks captures its graph,
+    every other replays one; a generator without a cache counts nothing."""
+
+    def __init__(self, gen):
+        from psg_tpu_torch.models.unet import _GRAPHS_KEPT
+
+        self.gen, self.kept, self.keys = gen, _GRAPHS_KEPT, []
+
+    def request(self, sampler, n_prompts, n_unet_evals):
+        """The ``unet_graph`` counts of one request: ``n_unet_evals``
+        evaluations of ``sampler`` over ``n_prompts`` prompts."""
+        if self.gen.unet_graphs is None or not n_unet_evals:
+            return {"capture": 0, "replay": 0, "eager": 0}
+        guided = sampler in ("ddim", "dpmpp") and self.gen.guidance_scale > 0
+        key = n_prompts * (2 if guided else 1)
+        capture = int(key not in self.keys)
+        if not capture:
+            self.keys.remove(key)
+        elif len(self.keys) == self.kept:
+            self.keys.pop(0)
+        self.keys.append(key)
+        return {"capture": capture, "replay": n_unet_evals - capture, "eager": 0}
+
+
+def predicted_launches(gen, n_unet_evals, *, text_encodes=1, encodes=0, decodes=1,
+                       captures=0):
     """Kernel launches of one request, from the model's structure: per UNet
     evaluation two GN+SiLU per ResBlock plus the final norm, and two
     attention calls per attention block; per text encode (each chain's
@@ -787,10 +836,15 @@ def predicted_launches(gen, n_unet_evals, *, text_encodes=1, encodes=0, decodes=
     attention per BERT layer; per VAE encode two GN+SiLU per ResNet block
     (14); per decode two GN+SiLU per ResNet block plus the final norm, and
     one spatial attention per decoder block (the fused kernel at the widths
-    it is built for, else the flash kernel)."""
+    it is built for, else the flash kernel).  A serving UNet evaluation
+    replayed from its CUDA graph launches these kernels from the host as an
+    eager one does; one of the ``captures`` launches them three times: its
+    eager warm-up, the capture's calls left out of the graph, and the first
+    replay."""
     from psg_tpu_torch.models.vae import _DEC_BLOCKS, _ENC_DOWN, _ENC_RES, width_scale
     from psg_tpu_torch.ops.spatial_xattn import CHANNELS
 
+    n_unet_evals += 2 * captures
     unet_gn = unet_attn = 0
     if n_unet_evals:
         spec = gen.spec
@@ -900,6 +954,7 @@ def full_width_config(corpus):
 
 def phase_serve_full_width(corpus):
     from psg_tpu_torch import ops
+    from psg_tpu_torch.models.unet import UNetGraphs
     from psg_tpu_torch.serve.generator import PokemonGenerator
     from psg_tpu_torch.text.tokenizer import WordPieceTokenizer
 
@@ -917,6 +972,9 @@ def phase_serve_full_width(corpus):
     # warm-up (cuDNN and cuBLAS pick their kernels), outside the counted run
     gen.generate_batch(PROMPTS, num_inference_steps=2, seed=100, sampler="ddim")
     gen.generate_from_text(PROMPTS[0], num_inference_steps=2, seed=101)
+    # the counted run captures its graphs: it starts from an empty cache
+    gen.unet_graphs = UNetGraphs(gen.params["unet"], gen.spec)
+    keys = UNetGraphKeys(gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     resident = torch.cuda.memory_allocated()
@@ -925,32 +983,36 @@ def phase_serve_full_width(corpus):
     expected = {k: 0 for k in ops.launch_counts()}
     ops.reset_launch_counts()   # the main path's counted run starts here
 
-    def serve(kind, fn, n_unet_evals):
-        before = ops.launch_counts()
+    def serve(kind, fn, sampler, n_prompts, n_unet_evals):
+        want_graphs = keys.request(sampler, n_prompts, n_unet_evals)
+        before, g0 = ops.launch_counts(), unet_graph_counts()
         t = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         got = {k: v - before[k] for k, v in ops.launch_counts().items()}
-        want = predicted_launches(gen, n_unet_evals)
+        graphs = graph_delta(g0)
+        want = predicted_launches(gen, n_unet_evals, captures=want_graphs["capture"])
         for k in expected:
             expected[k] += want[k]
         requests.append({"request": kind, "wall_s": wall, "launches": got,
-                         "predicted": want})
+                         "predicted": want, "unet_graphs": graphs})
         if got != want:
             fail(f"{kind}: kernel launches {got} != predicted {want}")
+        if graphs != want_graphs:
+            fail(f"{kind}: UNet graphs {graphs} != predicted {want_graphs}")
         return result
 
     steps_batch, steps_one = 20, 10
     imgs = serve(f"generate_batch n=4 ddim {steps_batch} steps cfg",
                  lambda: gen.generate_batch(PROMPTS, steps_batch, seed=0,
-                                            sampler="ddim"), steps_batch)
+                                            sampler="ddim"), "ddim", len(PROMPTS), steps_batch)
     a = serve(f"generate_from_text dpmpp {steps_one} steps cfg",
               lambda: np.asarray(gen.generate_from_text(PROMPTS[1], steps_one, seed=1)),
-              steps_one)
+              "dpmpp", 1, steps_one)
     b = serve(f"generate_from_text dpmpp {steps_one} steps cfg (same seed)",
               lambda: np.asarray(gen.generate_from_text(PROMPTS[1], steps_one, seed=1)),
-              steps_one)
+              "dpmpp", 1, steps_one)
     launches = ops.launch_counts()   # ... and ends here
     if imgs.shape != (4, 215, 215, 3) or not np.isfinite(imgs).all():
         fail(f"generate_batch: bad images {imgs.shape}")
@@ -964,13 +1026,14 @@ def phase_serve_full_width(corpus):
               "launches": launches, "image_std": float(imgs.std()),
               "resident_gb": resident / 1e9,
               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    return record, gen, imgs
+    return record, gen, keys, imgs
 
 
-def phase_serve_paths_full_width(gen, corpus, sprites):
+def phase_serve_paths_full_width(gen, keys, corpus, sprites):
     """The rest of serving at full width: image+text, restarts, retrieval
     seeding (single and batched), the four DDPM-family samplers and the
-    ``mean`` negative, each request's launches held to its prediction."""
+    ``mean`` negative, each request's launches and UNet graph counts held
+    to their prediction (``keys``: phase 4's ``UNetGraphKeys`` of ``gen``)."""
     from psg_tpu_torch import ops
     from psg_tpu_torch.data.dataset import read_description_csv
     from psg_tpu_torch.serve.generator import PokemonGenerator
@@ -992,6 +1055,8 @@ def phase_serve_paths_full_width(gen, corpus, sprites):
         gen._encode_impl(gen.params, torch.Generator(device=gen.device).manual_seed(0),
                          torch.zeros(b, size, size, 3, device=gen.device))
     gen.generate_from_image_and_text(sprite, PROMPTS[2], 2, 0.7, seed=100)
+    keys.request(gen.sampler_name, 1, unet_evals(gen, gen.sampler_name, 2))
+    mean_keys = UNetGraphKeys(mean_gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1004,49 +1069,57 @@ def phase_serve_paths_full_width(gen, corpus, sprites):
     expected = {k: 0 for k in ops.launch_counts()}
     ops.reset_launch_counts()   # this path's counted run starts here
 
-    def serve(kind, fn, n_unet_evals, **structure):
-        before = ops.launch_counts()
+    def serve(kind, fn, sampler, n_prompts, n_unet_evals, on=gen, **structure):
+        want_graphs = (keys if on is gen else mean_keys).request(sampler, n_prompts,
+                                                                 n_unet_evals)
+        before, g0 = ops.launch_counts(), unet_graph_counts()
         t = time.perf_counter()
         result = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         got = {k: v - before[k] for k, v in ops.launch_counts().items()}
-        want = predicted_launches(gen, n_unet_evals, **structure)
+        graphs = graph_delta(g0)
+        want = predicted_launches(gen, n_unet_evals, captures=want_graphs["capture"],
+                                  **structure)
         for k in expected:
             expected[k] += want[k]
         requests.append({"request": kind, "wall_s": wall, "unet_evals": n_unet_evals,
-                         "launches": got, "predicted": want})
+                         "launches": got, "predicted": want, "unet_graphs": graphs})
         if got != want:
             fail(f"{kind}: kernel launches {got} != predicted {want}")
+        if graphs != want_graphs:
+            fail(f"{kind}: UNet graphs {graphs} != predicted {want_graphs}")
         return np.asarray(result, np.float32)
 
-    evals = unet_evals(gen, gen.sampler_name, steps)
+    dpm = gen.sampler_name
+    evals = unet_evals(gen, dpm, steps)
     it = [serve(f"generate_from_image_and_text dpmpp {steps} steps cfg, seed {sd}",
                 lambda sd=sd: gen.generate_from_image_and_text(sprite, PROMPTS[0], steps,
                                                                0.7, seed=sd),
-                evals, encodes=1) for sd in (5, 5, 6)]
+                dpm, 1, evals, encodes=1) for sd in (5, 5, 6)]
     restart = serve(f"generate_from_text dpmpp {steps} steps cfg, 1 restart",
                     lambda: gen.generate_from_text(PROMPTS[1], steps, seed=7, restarts=1),
-                    2 * evals, text_encodes=2, encodes=1, decodes=2)
+                    dpm, 1, 2 * evals, text_encodes=2, encodes=1, decodes=2)
     retr = serve(f"generate_from_text_retrieval dpmpp {steps} steps cfg "
                  f"(index of {n_corpus} captions built)",
                  lambda: gen.generate_from_text_retrieval(PROMPTS[2], steps, seed=8,
                                                           strength=0.85),
-                 evals, text_encodes=index_encodes + 2, encodes=1)
+                 dpm, 1, evals, text_encodes=index_encodes + 2, encodes=1)
     batch = serve(f"generate_batch n=4 ddim {steps} steps cfg init=retrieval",
                   lambda: gen.generate_batch(PROMPTS, steps, seed=9, sampler="ddim",
                                              init="retrieval"),
-                  unet_evals(gen, "ddim", steps), text_encodes=len(PROMPTS) + 1, encodes=1)
+                  "ddim", len(PROMPTS), unet_evals(gen, "ddim", steps),
+                  text_encodes=len(PROMPTS) + 1, encodes=1)
     by_sampler = {}
     for sampler in ("renoise", "ddpm", "fast", "x0"):
         by_sampler[sampler] = serve(
             f"generate_batch n=1 {sampler} 7 steps (unguided)",
             lambda sampler=sampler: gen.generate_batch(PROMPTS[3:], 7, seed=10,
                                                        sampler=sampler),
-            unet_evals(gen, sampler, 7))
+            sampler, len(PROMPTS[3:]), unet_evals(gen, sampler, 7))
     mean = serve(f"generate_from_text dpmpp {steps} steps cfg, mean negative",
                  lambda: mean_gen.generate_from_text(PROMPTS[1], steps, seed=7),
-                 evals)
+                 mean_gen.sampler_name, 1, evals, on=mean_gen)
     launches = ops.launch_counts()   # ... and ends here
 
     one = (size, size, 3)
@@ -1347,9 +1420,13 @@ def phase_train_full_width(exp, corpus, vae_checkpoint):
                            tokenizer=tokenizer, sampler="dpmpp", device="cuda")
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    want["serve DPM-10"] = predicted_launches(gen, 10)
+    want_graphs = UNetGraphKeys(gen).request(gen.sampler_name, 1, 10)
+    want["serve DPM-10"] = predicted_launches(gen, 10, captures=want_graphs["capture"])
+    g0 = unet_graph_counts()
     img, serve_s = part("serve DPM-10", lambda: np.asarray(
         gen.generate_from_text(PROMPTS[0], 10, seed=3), np.float32))
+    if graph_delta(g0) != want_graphs:
+        fail(f"serve DPM-10: UNet graphs {graph_delta(g0)} != predicted {want_graphs}")
     launches = ops.launch_counts()     # ... and ends here
     for name in want:
         if got[name] != want[name]:
@@ -1974,8 +2051,14 @@ def phase_stage3_full_width(exp, corpus, vae_checkpoint, diffusion_checkpoint):
                            tokenizer=tokenizer, sampler="dpmpp", device="cuda")
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
+    want_graphs = UNetGraphKeys(gen).request(gen.sampler_name, 1, 10)
+    g0 = unet_graph_counts()
     img = part("serve DPM-10", lambda: np.asarray(
-        gen.generate_from_text(PROMPTS[0], 10, seed=3), np.float32), predicted_launches(gen, 10))
+        gen.generate_from_text(PROMPTS[0], 10, seed=3), np.float32),
+        predicted_launches(gen, 10, captures=want_graphs["capture"]))
+    if graph_delta(g0) != want_graphs:
+        fail(f"stage 3 serve DPM-10: UNet graphs {graph_delta(g0)} != predicted "
+             f"{want_graphs}")
     launches = ops.launch_counts()     # ... and ends here
     for name in want:
         if got[name] != want[name]:
@@ -2632,16 +2715,20 @@ def phase_fast_full_width(tmp, corpus):
                            sampler="dpmpp", device="cuda")
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t
-    before = ops.launch_counts()
+    want_graphs = UNetGraphKeys(gen).request(gen.sampler_name, 1, 10)
+    before, g0 = ops.launch_counts(), unet_graph_counts()
     t = time.perf_counter()
     img = np.asarray(gen.generate_from_text(PROMPTS[0], 10, seed=3), np.float32)
     torch.cuda.synchronize()
     serve_s = time.perf_counter() - t
     launches = ops.launch_counts()     # ... and ends here
-    want = predicted_launches(gen, 10)
+    want = predicted_launches(gen, 10, captures=want_graphs["capture"])
     got = {k: v - before[k] for k, v in launches.items()}
     if got != want:
         fail(f"serving the fast path's bundle: launches {got} != predicted {want}")
+    if graph_delta(g0) != want_graphs:
+        fail(f"serving the fast path's bundle: UNet graphs {graph_delta(g0)} != "
+             f"predicted {want_graphs}")
     if gen.loaded != "final-bundle" or img.shape != (FAST_SIZE, FAST_SIZE, 3) or not np.isfinite(
             img).all():
         fail(f"serving the fast path's bundle: loaded={gen.loaded}, image {img.shape}")
@@ -3437,27 +3524,33 @@ def _script(rel):
     return mod
 
 
-def request_launches(gen, method, n_prompts, kw, index_encodes):
-    """Kernel launches of one public request, from the model's structure:
-    its chain and each restart pass (a text encode, the UNet evaluations and
-    a decode; a restart also an encode), a VAE encode and a query encode a
-    prompt when retrieval seeds it, and ``index_encodes`` when the
-    retrieval index is built inside it.  Fused CFG doubles a UNet call's
-    rows, not its launches."""
+def request_launches(gen, keys, method, n_prompts, kw, index_encodes):
+    """Kernel launches and UNet graph counts of one public request, from
+    the model's structure: its chain and each restart pass (a text encode,
+    the UNet evaluations and a decode; a restart also an encode), a VAE
+    encode and a query encode a prompt when retrieval seeds it, and
+    ``index_encodes`` when the retrieval index is built inside it.  Fused
+    CFG doubles a UNet call's rows, not its launches; ``keys``: the
+    generator's ``UNetGraphKeys``."""
     restarts = kw.get("restarts", 0)
     seeded = method == "generate_from_text_retrieval" or kw.get("init") == "retrieval"
-    evals = unet_evals(gen, kw.get("sampler") or gen.sampler_name, kw["num_inference_steps"])
-    return predicted_launches(gen, evals * (1 + restarts),
+    sampler = kw.get("sampler") or gen.sampler_name
+    evals = unet_evals(gen, sampler, kw["num_inference_steps"]) * (1 + restarts)
+    graphs = keys.request(sampler, n_prompts, evals)
+    return predicted_launches(gen, evals,
                               text_encodes=(1 + restarts + index_encodes
                                             + (n_prompts if seeded else 0)),
-                              encodes=int(seeded) + restarts, decodes=1 + restarts)
+                              encodes=int(seeded) + restarts, decodes=1 + restarts,
+                              captures=graphs["capture"]), graphs
 
 
 def _watch_requests(gen, requests, expected, corpus_size):
     """Time each public request the scripts make of ``gen`` (ending in a
-    sync) and hold its launches to ``request_launches``."""
+    sync) and hold its launches and UNet graph counts to
+    ``request_launches``."""
     from psg_tpu_torch import ops
 
+    keys = UNetGraphKeys(gen)
     for method in ("generate_batch", "generate_from_text_retrieval"):
         orig = getattr(gen, method)
 
@@ -3466,13 +3559,14 @@ def _watch_requests(gen, requests, expected, corpus_size):
             seeded = not batch or kw.get("init") == "retrieval"
             index = math.ceil(corpus_size / 64) if seeded and gen._retr is None else 0
             n = len(descriptions) if batch else 1
-            want = request_launches(gen, _method, n, kw, index)
-            before = ops.launch_counts()
+            want, want_graphs = request_launches(gen, keys, _method, n, kw, index)
+            before, g0 = ops.launch_counts(), unet_graph_counts()
             t = time.perf_counter()
             out = _orig(descriptions, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
             got = {k: v - before[k] for k, v in ops.launch_counts().items()}
+            graphs = graph_delta(g0)
             for k in expected:
                 expected[k] += want[k]
             kind = (f"{_method} n={n} {kw.get('sampler') or gen.sampler_name}"
@@ -3481,9 +3575,11 @@ def _watch_requests(gen, requests, expected, corpus_size):
                     + (f" init={kw.get('init', 'prior')}" if batch else " loo")
                     + (" (index built)" if index else ""))
             requests.append({"request": kind, "wall_s": wall, "launches": got,
-                             "predicted": want})
+                             "predicted": want, "unet_graphs": graphs})
             if got != want:
                 fail(f"{kind}: kernel launches {got} != predicted {want}")
+            if graphs != want_graphs:
+                fail(f"{kind}: UNet graphs {graphs} != predicted {want_graphs}")
             return out
 
         setattr(gen, method, watched)
@@ -3835,11 +3931,11 @@ def main(argv=None):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_corpus_") as tmp:
         corpus = write_sprite_corpus(tmp, n=8, seed=0, size=215)
         t = time.perf_counter()
-        serve, gen, sprites = phase_serve_full_width(corpus)
+        serve, gen, keys, sprites = phase_serve_full_width(corpus)
         emit("serve_full_width", {"card": card, **serve,
                                   "seconds": time.perf_counter() - t})
         t = time.perf_counter()
-        paths = phase_serve_paths_full_width(gen, corpus, sprites)
+        paths = phase_serve_paths_full_width(gen, keys, corpus, sprites)
         emit("serve_paths_full_width", {"card": card, **paths,
                                         "seconds": time.perf_counter() - t})
         del gen

@@ -24,14 +24,28 @@ package draws block ``i``'s triple from ``split(split(dropout_key, (2L + 1)B
 + 1)[i], 3)`` (L levels, B blocks a level; the last 2B keys go unused); the
 tests pass those masks in.
 
+Serving replays its evaluations as CUDA graphs: ``unet_apply(graphs=...)``
+takes a ``UNetGraphs`` bound to one parameter tree, which captures the eager
+body once per input shape and replays it for every later call that passes
+that very tree with no gradient and no dropout, on the card.  The graph is
+captured in pieces around the hand-written kernels' calls, which launch from
+the host at every replay (``utils.graphs``).  Any other call runs the eager
+body, as every trainer's does.  Counters
+(``utils.profiling``): ``unet_graph.capture``, ``unet_graph.replay``, and
+``unet_graph.eager`` for a call that was handed a cache and ran eagerly.
+
 Spans (``utils.profiling``): ``psg.unet.eval`` around an evaluation, and
-inside it one a level, ``psg.unet.enc<i>``, ``psg.unet.mid`` and
-``psg.unet.dec<i>``; a level's down or up convolution is part of it.
+inside the eager body one a level, ``psg.unet.enc<i>``, ``psg.unet.mid``
+and ``psg.unet.dec<i>``; a level's down or up convolution is part of it.  A
+replayed evaluation has only the outer span: its level spans appear in the
+trace of its capture.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
+import threading
 from typing import NamedTuple, Tuple
 
 import torch
@@ -52,7 +66,14 @@ from psg_tpu_torch.nn.layers import (
     linear_init,
 )
 from psg_tpu_torch.nn.resize import bilinear_resize
-from psg_tpu_torch.utils.profiling import span
+from psg_tpu_torch.utils.graphs import PiecewiseGraph
+from psg_tpu_torch.utils.profiling import (
+    UNET_GRAPH_CAPTURE,
+    UNET_GRAPH_EAGER,
+    UNET_GRAPH_REPLAY,
+    count,
+    span,
+)
 
 
 class UNetSpec(NamedTuple):
@@ -268,11 +289,26 @@ def _level_spans(nlvl: int):
 
 
 def unet_apply(params, noisy_latent, timesteps, text_seq, spec: UNetSpec, *,
-               text_mask=None, dtype=None, dropout=None):
+               text_mask=None, dtype=None, dropout=None, graphs=None):
     """Predict noise.  noisy_latent: [B, 27, 27, latent_dim]; timesteps: [B];
     text_seq: [B, S, text_dim] -> [B, 27, 27, latent_dim].  ``dropout``:
     None (no attention dropout), a ``torch.Generator``, or one entry per
-    block (see the module note)."""
+    block (see the module note).  ``graphs``: a ``UNetGraphs`` the call
+    replays where it can (``UNetGraphs.takes``); every other call runs the
+    eager body."""
+    with span(_SPAN_EVAL):
+        if graphs is not None:
+            if graphs.takes(params, noisy_latent, timesteps, text_seq, spec,
+                            text_mask, dropout):
+                return graphs(noisy_latent, timesteps, text_seq, text_mask, dtype)
+            count(UNET_GRAPH_EAGER)
+        return _unet_body(params, noisy_latent, timesteps, text_seq, spec,
+                          text_mask=text_mask, dtype=dtype, dropout=dropout)
+
+
+def _unet_body(params, noisy_latent, timesteps, text_seq, spec: UNetSpec, *,
+               text_mask=None, dtype=None, dropout=None):
+    """``unet_apply``'s eager evaluation, the one a graph captures."""
     nlvl = len(spec.channels)
     ch = spec.channels
     if dropout is None or draws.is_source(dropout):
@@ -284,47 +320,148 @@ def unet_apply(params, noisy_latent, timesteps, text_seq, spec: UNetSpec, *,
         drops = iter(dropout)
 
     enc_spans, dec_spans = _level_spans(nlvl)
-    with span(_SPAN_EVAL):
-        t = sinusoidal_time_embedding(timesteps, spec.time_emb_dim)
-        tm = params["time_mlp"]
-        t = F.silu(linear(tm["l1"], t, dtype=dtype))
-        t = F.silu(linear(tm["l2"], t, dtype=dtype))
-        time_emb = linear(tm["l3"], t, dtype=dtype)
+    t = sinusoidal_time_embedding(timesteps, spec.time_emb_dim)
+    tm = params["time_mlp"]
+    t = F.silu(linear(tm["l1"], t, dtype=dtype))
+    t = F.silu(linear(tm["l2"], t, dtype=dtype))
+    time_emb = linear(tm["l3"], t, dtype=dtype)
 
-        tp = pooled_text(text_seq, text_mask)
-        tb = text_bias_from_mask(text_mask)
+    tp = pooled_text(text_seq, text_mask)
+    tb = text_bias_from_mask(text_mask)
 
-        x = conv2d(params["init_conv"], noisy_latent, stride=1, padding=1, dtype=dtype)
-        skips = []
-        for lvl in range(nlvl):
-            with span(enc_spans[lvl]):
-                if lvl > 0:
-                    x = conv2d(params[f"down{lvl}"], x, stride=2, padding=1, dtype=dtype)
-                for blk in params[f"enc{lvl}"]:
-                    x = unetblock_apply(blk, x, time_emb, tp, text_seq, spec,
-                                        cin=ch[lvl], cout=ch[lvl], text_bias=tb,
-                                        dtype=dtype, dropout=next(drops))
-                skips.append(x)
+    x = conv2d(params["init_conv"], noisy_latent, stride=1, padding=1, dtype=dtype)
+    skips = []
+    for lvl in range(nlvl):
+        with span(enc_spans[lvl]):
+            if lvl > 0:
+                x = conv2d(params[f"down{lvl}"], x, stride=2, padding=1, dtype=dtype)
+            for blk in params[f"enc{lvl}"]:
+                x = unetblock_apply(blk, x, time_emb, tp, text_seq, spec,
+                                    cin=ch[lvl], cout=ch[lvl], text_bias=tb,
+                                    dtype=dtype, dropout=next(drops))
+            skips.append(x)
 
-        with span(_SPAN_MID):
-            x = unetblock_apply(params["middle"], x, time_emb, tp, text_seq, spec,
-                                cin=ch[-1], cout=ch[-1], text_bias=tb, dtype=dtype,
-                                dropout=next(drops))
+    with span(_SPAN_MID):
+        x = unetblock_apply(params["middle"], x, time_emb, tp, text_seq, spec,
+                            cin=ch[-1], cout=ch[-1], text_bias=tb, dtype=dtype,
+                            dropout=next(drops))
 
-        for lvl in reversed(range(nlvl)):
-            with span(dec_spans[lvl]):
-                skip = skips.pop()
-                # the same skip tensor is concatenated before BOTH decoder blocks
-                for blk in params[f"dec{lvl}"]:
-                    x = torch.cat([x, skip], dim=-1)
-                    x = unetblock_apply(blk, x, time_emb, tp, text_seq, spec,
-                                        cin=2 * ch[lvl], cout=ch[lvl], text_bias=tb,
-                                        dtype=dtype, dropout=next(drops))
-                if lvl > 0:
-                    target = spec.spatial[lvl - 1]
-                    x = bilinear_resize(x, (target, target))
-                    x = conv2d(params[f"up{lvl}"], x, stride=1, padding=1, dtype=dtype)
+    for lvl in reversed(range(nlvl)):
+        with span(dec_spans[lvl]):
+            skip = skips.pop()
+            # the same skip tensor is concatenated before BOTH decoder blocks
+            for blk in params[f"dec{lvl}"]:
+                x = torch.cat([x, skip], dim=-1)
+                x = unetblock_apply(blk, x, time_emb, tp, text_seq, spec,
+                                    cin=2 * ch[lvl], cout=ch[lvl], text_bias=tb,
+                                    dtype=dtype, dropout=next(drops))
+            if lvl > 0:
+                target = spec.spatial[lvl - 1]
+                x = bilinear_resize(x, (target, target))
+                x = conv2d(params[f"up{lvl}"], x, stride=1, padding=1, dtype=dtype)
 
-        x = ops.group_norm_silu(params["final_norm"], x, largest_group_count(ch[0]),
-                                eps=1e-5)
-        return conv2d(params["final_conv"], x, stride=1, padding=1, dtype=dtype)
+    x = ops.group_norm_silu(params["final_norm"], x, largest_group_count(ch[0]),
+                            eps=1e-5)
+    return conv2d(params["final_conv"], x, stride=1, padding=1, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# CUDA-graph replay of evaluations (serving)
+# ---------------------------------------------------------------------------
+
+# keys a cache holds captured, the least recently used evicted: a serving
+# deployment's key is its UNet batch (the prompts of a request, twice under
+# fused CFG), so four hold a guided and an unguided sampler at two batch sizes
+_GRAPHS_KEPT = 4
+
+
+class _Captured(NamedTuple):
+    inputs: tuple              # static input buffers, None where the input is None
+    graph: PiecewiseGraph
+    output: torch.Tensor       # static output
+
+
+class UNetGraphs:
+    """CUDA graphs of ``unet_apply`` evaluations over one parameter tree and
+    one ``UNetSpec``, for a caller that owns fixed weights and asks for no
+    gradient (``PokemonGenerator`` on one card).
+
+    One graph per key: the shapes and dtypes of ``noisy_latent``,
+    ``timesteps``, ``text_seq`` and ``text_mask``, and the compute dtype.
+    The graph is captured in pieces (``utils.graphs.PiecewiseGraph``)
+    between the calls of the hand-written GN+SiLU and flash kernels, which
+    launch from the host at every replay: 62 pieces and 61 such calls an
+    evaluation of the default spec, in place of its ~1,435 launches.  The
+    first eligible call of a key runs one eager evaluation on a side stream,
+    so that cuDNN and cuBLAS choose their kernels and workspaces outside the
+    capture, captures the eager body on that stream, and replays it.  Later
+    calls copy their inputs into the static buffers, replay, and return a
+    clone of the static output: a sampler keeps earlier outputs, which the
+    next replay would overwrite.  Every key's graph allocates from one
+    memory pool; a graph may reuse another's intermediates, which is sound
+    because replays run one at a time and each output is cloned before the
+    next.  A lock keeps two threads off the static buffers at once.  At
+    most ``_GRAPHS_KEPT`` keys are held.
+
+    The graphs read the tree's leaves where they lay at capture: change
+    their values in place or build a new cache for a new tree, but never
+    replace a leaf of this one.
+    """
+
+    def __init__(self, params, spec: UNetSpec):
+        self.params = params
+        self.spec = spec
+        self._entries = collections.OrderedDict()   # key -> _Captured
+        self._lock = threading.Lock()
+        self._pool = self._stream = None
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def takes(self, params, noisy_latent, timesteps, text_seq, spec, text_mask,
+              dropout) -> bool:
+        """Whether a call replays: this very tree and spec, no dropout, no
+        gradient, every input on the card."""
+        return (params is self.params and dropout is None
+                and not torch.is_grad_enabled() and spec == self.spec
+                and all(t is None or t.is_cuda
+                        for t in (noisy_latent, timesteps, text_seq, text_mask)))
+
+    def __call__(self, noisy_latent, timesteps, text_seq, text_mask, dtype):
+        inputs = (noisy_latent, timesteps, text_seq, text_mask)
+        key = (dtype, *(None if t is None else (t.shape, t.dtype) for t in inputs))
+        with self._lock:
+            entry = self._entries.get(key)
+            if entry is None:
+                entry = self._capture(key, inputs, dtype)
+            else:
+                self._entries.move_to_end(key)
+                for buf, t in zip(entry.inputs, inputs):
+                    if buf is not None:
+                        buf.copy_(t)
+                entry.graph.replay()
+                count(UNET_GRAPH_REPLAY)
+            return entry.output.clone()
+
+    def _capture(self, key, inputs, dtype) -> _Captured:
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(inputs[0].device)
+        if len(self._entries) >= _GRAPHS_KEPT:
+            self._entries.popitem(last=False)
+        static = tuple(None if t is None else t.clone(memory_format=torch.contiguous_format)
+                       for t in inputs)
+
+        def body():
+            return _unet_body(self.params, static[0], static[1], static[2], self.spec,
+                              text_mask=static[3], dtype=dtype)
+
+        self._stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(self._stream):
+            body()
+        graph = PiecewiseGraph(self._pool)
+        output = graph.capture(body, self._stream)
+        entry = self._entries[key] = _Captured(static, graph, output)
+        graph.replay()
+        count(UNET_GRAPH_CAPTURE)
+        return entry

@@ -28,6 +28,10 @@ bias goes to the flash kernel, any other bias that broadcasts to
 ``[B, H, Lq, Lk]`` (CLIP's causal + padding mask) to ``sdpa_plain``, the
 reference's ``sdpa_xla``, on either device.  The kernel refuses such a bias,
 as the TPU kernel does, so the dispatch hides no kernel.
+
+``sdpa`` and ``group_norm_silu`` are marked ``utils.graphs.eager_between``:
+a CUDA graph captured in pieces (the serving UNet's, ``models.unet``)
+leaves their calls out and makes them from the host at each replay.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 
 from psg_tpu_torch.ops import flash_attention, fused_norm, spatial_xattn
 from psg_tpu_torch.utils import profiling
+from psg_tpu_torch.utils.graphs import eager_between
 
 KERNELS = (fused_norm.KERNEL, flash_attention.KERNEL, spatial_xattn.KERNEL,
            flash_attention.BWD_KERNEL)
@@ -49,12 +54,14 @@ def reset_launch_counts() -> None:
     profiling.reset_counts("launch.")
 
 
+@eager_between
 def group_norm_silu(params, x, num_groups: int, *, eps: float = 1e-5):
     """silu(group_norm(x)) over channels-last x."""
     return fused_norm.fused_group_norm_silu(params, x.contiguous(), num_groups,
                                             eps=eps)
 
 
+@eager_between
 def sdpa(q, k, v, *, bias=None, scale=None):
     """Scaled dot-product attention.
 

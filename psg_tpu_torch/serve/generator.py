@@ -37,6 +37,11 @@ each rank runs its rows with the request's draws made at the global shape
 rank; the images equal the single-process ones.  The other public methods
 run every row on every rank.
 
+On one card (no mesh) the generator replays its UNet's evaluations as CUDA
+graphs (``models.unet.UNetGraphs``, ``unet_graphs``): one graph for each
+batch shape the samplers run, captured at its first evaluation.  A call
+given another UNet tree through ``params=`` runs eagerly.
+
 Spans (``utils.profiling``): ``psg.serve.request`` around ``_serve``, which
 every entry point goes through; inside it, a pass at a time,
 ``psg.serve.text``, ``psg.serve.sampler`` and ``psg.serve.vae_decode``, and
@@ -72,6 +77,7 @@ from psg_tpu_torch.models import bridge
 from psg_tpu_torch.models.bert import bert_config_for
 from psg_tpu_torch.models.text_encoder import text_encoder_apply, text_encoder_init
 from psg_tpu_torch.models.unet import (
+    UNetGraphs,
     text_bias_from_mask,
     unet_apply,
     unet_init,
@@ -255,6 +261,9 @@ class PokemonGenerator:
             self.mesh_run = MeshRun(mesh, self.params["unet"], tp_min_channels=int(
                 (cfg.extra or {}).get("tp_min_channels", 640)))
             self.params["unet"] = self.mesh_run.layout.shard(self.params["unet"])
+        # on a mesh each request gathers a new UNet tree, which no graph holds
+        self.unet_graphs = (UNetGraphs(self.params["unet"], self.spec)
+                            if self.device.type == "cuda" and mesh is None else None)
 
         # CFG negative branch: "zero" is the cond-dropout zero embedding,
         # "mean" the mean dataset-caption embedding (an in-distribution
@@ -336,7 +345,8 @@ class PokemonGenerator:
 
         def denoise(x, t):
             out = unet_apply(params["unet"], x.to(text_emb.dtype), t, text_emb,
-                             self.spec, text_mask=text_mask, dtype=self.compute_dtype)
+                             self.spec, text_mask=text_mask, dtype=self.compute_dtype,
+                             graphs=self.unet_graphs)
             if self.prediction_type == "v":
                 out = self.schedule.eps_from_v(out, x, t)
             return out
@@ -388,7 +398,8 @@ class PokemonGenerator:
             xx = torch.cat([x, x], dim=0)
             tt = torch.cat([t, t], dim=0)
             eps = unet_apply(params["unet"], xx.to(text_emb.dtype), tt, emb_cat,
-                             self.spec, text_mask=mask_cat, dtype=self.compute_dtype)
+                             self.spec, text_mask=mask_cat, dtype=self.compute_dtype,
+                             graphs=self.unet_graphs)
             if self.prediction_type == "v":
                 eps = self.schedule.eps_from_v(eps, xx, tt)
             e_c, e_u = eps.float().chunk(2, dim=0)

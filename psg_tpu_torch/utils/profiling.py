@@ -10,8 +10,14 @@
   ``scripts/torch_profile_train.py`` print it);
 - ``count(name, n)``: always-on integer counters (``counts``,
   ``reset_counts``): ``host_reads``, one at the optimizer's device-to-host
-  read of the step's finite flag and norms, and ``launch.<library>``, the
-  kernel launches each ``ops`` library makes from the host;
+  read of the step's finite flag and norms; ``launch.<library>``, the
+  kernel launches each ``ops`` library makes from the host (a launch
+  captured into a CUDA graph once, its replays never; the serving UNet's
+  graphs leave these kernels out, ``utils/graphs.py``, so each of its
+  evaluations counts them); and the UNet's graphs (``models/unet.py``):
+  ``unet_graph.capture`` and ``unet_graph.replay``, and
+  ``unet_graph.eager`` for an evaluation handed a graph cache that ran its
+  eager body;
 - ``trace``: a ``torch.profiler`` capture of everything inside the block,
   written as a Chrome trace (view in Perfetto);
 - ``StepTimer``: per-step times; on the card from CUDA events recorded on
@@ -42,6 +48,9 @@ _record_function = torch.profiler.record_function
 # -- counters ----------------------------------------------------------------
 
 HOST_READS = "host_reads"
+UNET_GRAPH_CAPTURE = "unet_graph.capture"
+UNET_GRAPH_REPLAY = "unet_graph.replay"
+UNET_GRAPH_EAGER = "unet_graph.eager"
 _counts: Dict[str, int] = {}
 
 

@@ -6,8 +6,9 @@ the card.
 
 Builds the full-width generator (config/train_config.yaml, bf16, random
 weights from the config's seed), warms it up, then runs under
-``torch.profiler`` each component of the chain (text encode, one UNet eval,
-VAE decode, and the VAE encode with ``reparameterize`` at batch 1 and 4),
+``torch.profiler`` each component of the chain (text encode, one UNet eval
+run eagerly and one replayed from the generator's CUDA graph, VAE decode,
+and the VAE encode with ``reparameterize`` at batch 1 and 4),
 one whole batch request (DDIM, CFG with a negative prompt, so the UNet runs
 at batch 2N), and three batch-1 requests at the same steps: text -> sprite,
 image+text -> sprite (a 215x215 sprite of the batch request, noise strength
@@ -20,7 +21,8 @@ count by kernel family (``copy`` is Tensor.copy_: ``.contiguous()`` and
 dtype casts), and the program's ``psg.*`` spans in the profiled run
 (``spans``: ``utils.profiling.span_table``; a request's
 ``psg.serve.request``, ``text``, ``sampler``, ``vae_decode`` and
-``vae_encode``, ``psg.unet.eval`` and its nine levels, each with its count
+``vae_encode``, ``psg.unet.eval`` and, in an eager evaluation, its nine
+levels (a replayed one has no level spans), each with its count
 and, a span on average, host ms under the profiler, device ms, launch calls
 that reached the device and the device's idle ms inside it).  Needs one CUDA
 card; imports no JAX.
@@ -85,7 +87,9 @@ def profiled(name, fn, trace=None):
     by_family, count_by_family = defaultdict(float), defaultdict(int)
     kernels, launches, top = 0.0, 0, []
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # the program's spans are listed as device ranges too: not kernels
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or evt.key.startswith("psg.")):
             continue
         us = evt.self_device_time_total
         kernels += us
@@ -158,6 +162,9 @@ def main():
                                                       gen.bert_cfg, dtype=dt),
             f"unet_eval (batch {2 * n})": lambda: unet_apply(
                 p["unet"], x, t, emb2, gen.spec, text_mask=mask2, dtype=dt),
+            f"unet_eval graph replay (batch {2 * n})": lambda: unet_apply(
+                p["unet"], x, t, emb2, gen.spec, text_mask=mask2, dtype=dt,
+                graphs=gen.unet_graphs),
             "vae_decode": lambda: vae_decode(p["vae"], lat, emb,
                                              text_bias=text_bias_from_mask(mask),
                                              image_size=cfg.data.image_size, dtype=dt),

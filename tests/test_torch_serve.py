@@ -23,8 +23,10 @@ from psg_tpu.text.tokenizer import WordPieceTokenizer as JaxTokenizer
 from psg_tpu_torch.core.checkpoint import load_serving_params, read_checkpoint
 from psg_tpu_torch.core.config import Config
 from psg_tpu_torch.models import bridge
+from psg_tpu_torch.models.unet import UNetGraphs, unet_apply
 from psg_tpu_torch.serve.generator import PokemonGenerator
 from psg_tpu_torch.text.tokenizer import WordPieceTokenizer
+from psg_tpu_torch.utils import profiling
 
 # one intra-op thread: the suite runs several test processes at once, and
 # a pool of one thread per core in each of them oversubscribes the CPU
@@ -128,6 +130,44 @@ def test_seeded_generation_on_cpu(port_params, tmp_path):
     imgs = gen.generate_batch(["a", "b", "c"], num_inference_steps=2, seed=0,
                               sampler="dpmpp")
     assert imgs.shape == (3, 64, 64, 3) and np.isfinite(imgs).all()
+
+
+def _graph_counts():
+    c = profiling.counts()
+    return {k: c.get(f"unet_graph.{k}", 0) for k in ("capture", "replay", "eager")}
+
+
+def test_unet_graphs_run_eagerly_on_the_cpu(port_params, tmp_path):
+    """On the CPU a call handed a graph cache runs the eager body, equals the
+    call without it, and counts one ``unet_graph.eager``."""
+    gen = _port_gen(tmp_path, port_params)
+    p, spec = gen.params["unet"], gen.spec
+    rng = torch.Generator().manual_seed(0)
+    x = torch.randn((2, gen.latent_size, gen.latent_size, gen.cfg.model.latent_dim),
+                    generator=rng)
+    t = torch.tensor([3, 41], dtype=torch.int32)
+    emb = torch.randn((2, gen.cfg.data.text_len, gen.cfg.model.text_embedding_dim),
+                      generator=rng)
+    mask = (torch.arange(gen.cfg.data.text_len) < torch.tensor([[5], [9]])).long()
+    graphs = UNetGraphs(p, spec)
+    with torch.no_grad():
+        want = unet_apply(p, x, t, emb, spec, text_mask=mask)
+        before = _graph_counts()
+        got = unet_apply(p, x, t, emb, spec, text_mask=mask, graphs=graphs)
+    assert torch.equal(got, want)
+    after = _graph_counts()
+    assert {k: after[k] - before[k] for k in after} == {"capture": 0, "replay": 0,
+                                                        "eager": 1}
+    assert len(graphs) == 0
+
+
+def test_cpu_generator_builds_no_unet_graphs(port_params, tmp_path):
+    gen = _port_gen(tmp_path, port_params, sampler="dpmpp", guidance_scale=2.0,
+                    negative=NEGATIVE)
+    assert gen.unet_graphs is None
+    before = _graph_counts()
+    gen.generate_from_text("a blue turtle", num_inference_steps=2, seed=3, restarts=1)
+    assert _graph_counts() == before
 
 
 def _assert_trees_equal(a, b):

@@ -10,18 +10,34 @@ and on the card where there is one.
 - a tiny DPM++ request with one restart, and a tiny fast-path stage-2 step:
   the spans each makes, and the step's one host read;
 - ``ops.launch_counts`` keeps its keys and meaning;
-- spans change no number: a request's image is the same profiled or not.
+- spans change no number: a request's image is the same profiled or not;
+- ``utils.graphs`` with the CUDA graph calls stood in for: a tiny UNet
+  captured in pieces leaves out each GN+SiLU and attention call and, at
+  replay, calls them through the names they have then.
 
 The card tests (marker ``cuda``) skip without a CUDA device: over one fast
 step the syncs ``torch.cuda.set_sync_debug_mode`` reports equal the
 ``host_reads`` counted, and a profiled request holds one ``psg.unet.eval``
-range an evaluation.  This file imports no JAX:
+range an evaluation, each a graph replay of 3n + 6 calls for its n
+hand-written kernel calls.  The UNet's CUDA graphs
+(``models.unet.UNetGraphs``): a graphed request equals the eager one bit
+for bit and captures once; a replay calls the kernels' entry points, so a
+wrapper placed on them after the capture sees every call and its launch;
+replays keep earlier outputs intact; a second batch shape captures a second
+graph, and one shape more than the cache holds evicts the least recently
+used; threads sharing one cache each get their own output; another tree, a
+gradient or dropout runs eagerly and counts ``unet_graph.eager``.  This
+file imports no JAX:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_tracing.py
 """
 
 import collections
+import contextlib
 import json
+import os
+import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -33,10 +49,13 @@ import torch
 from psg_tpu_torch import ops
 from psg_tpu_torch.core.config import Config
 from psg_tpu_torch.data.synthetic import write_sprite_corpus
+from psg_tpu_torch.models import unet as unet_mod
+from psg_tpu_torch.models.unet import unet_apply
 from psg_tpu_torch.ops import cuda_build
 from psg_tpu_torch.serve.generator import PokemonGenerator
 from psg_tpu_torch.text.tokenizer import WordPieceTokenizer
 from psg_tpu_torch.train.stage2_diffusion import DiffusionTrainer
+from psg_tpu_torch.utils import graphs as graphs_mod
 from psg_tpu_torch.utils import profiling
 
 # one intra-op thread: the suite runs several test processes at once, and
@@ -303,6 +322,80 @@ def test_fast_step_spans_and_one_host_read(tmp_path):
     assert parents[i] == "psg.train.forward"
 
 
+# -- pieces of a CUDA graph, the CUDA calls stood in for ------------------------
+
+class _StandInGraph:
+    """Records the calls ``PiecewiseGraph`` makes of a CUDA graph."""
+
+    log = []
+
+    def capture_begin(self, pool=None, capture_error_mode="global"):
+        self.log.append("begin")
+
+    def capture_end(self):
+        self.log.append("end")
+
+    def replay(self):
+        self.log.append("replay")
+
+
+class _StandInStream:
+    def wait_stream(self, other):
+        pass
+
+
+def test_eager_between_passes_calls_on_outside_a_capture():
+    assert ops.sdpa.__wrapped__.__name__ == "sdpa"
+    assert ops.group_norm_silu.__wrapped__.__name__ == "group_norm_silu"
+    q = torch.randn(1, 2, 5, 8)
+    assert torch.equal(ops.sdpa(q, q, q), ops.sdpa.__wrapped__(q, q, q))
+
+
+def test_piecewise_capture_leaves_the_kernel_calls_out(monkeypatch):
+    """On the CPU a stood-in capture runs every launch at once, so the
+    output is the eager one; the pieces and the calls between them follow
+    the UNet's structure, and a replay calls ``ops.sdpa`` and
+    ``ops.group_norm_silu`` by the names they have at that moment."""
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _StandInGraph)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    monkeypatch.setattr(torch.cuda, "stream", lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _StandInStream())
+    _StandInGraph.log = []
+    spec = unet_mod.UNetSpec(latent_dim=4, text_dim=16, time_emb_dim=8, num_heads=2,
+                             channels=(8, 16, 16, 16))
+    params = unet_mod.unet_init(torch.Generator().manual_seed(0), spec)
+    rng = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 27, 27, 4, generator=rng)
+    t = torch.tensor([3, 5], dtype=torch.int32)
+    emb = torch.randn(2, 6, 16, generator=rng)
+    mask = torch.tensor([[1] * 6, [1] * 3 + [0] * 3])
+
+    def body():
+        return unet_mod._unet_body(params, x, t, emb, spec, text_mask=mask)
+
+    with torch.no_grad():
+        want = body()
+        graph = graphs_mod.PiecewiseGraph(None)
+        out = graph.capture(body, _StandInStream())
+        assert torch.equal(out, want)
+        gn, attn = _kernel_calls(spec)
+        assert len(graph) == gn + attn + 1
+        assert _StandInGraph.log == ["begin", "end"] * (gn + attn + 1)
+        seen = collections.Counter()
+        for name in ("sdpa", "group_norm_silu"):
+            orig = getattr(ops, name)
+            monkeypatch.setattr(ops, name, lambda *a, _n=name, _o=orig, **k: (
+                seen.update([_n]), _o(*a, **k))[1])
+        _StandInGraph.log = []
+        out.zero_()
+        graph.replay()
+    assert _StandInGraph.log == ["replay"] * (gn + attn + 1)
+    assert seen == {"sdpa": attn, "group_norm_silu": gn}
+    # the last piece, which made the output, was not run: only its calls were
+    assert not out.any()
+
+
 # -- on the card ---------------------------------------------------------------
 
 @pytest.fixture(scope="module")
@@ -339,3 +432,207 @@ def test_profiled_request_has_one_unet_range_an_evaluation(card, tmp_path):
     assert table["psg.unet.eval"]["count"] == STEPS * 2
     assert table["psg.serve.request"]["count"] == 1
     assert table["psg.unet.eval"]["device_ms"] > 0 and table["psg.unet.eval"]["calls"] > 0
+    # every evaluation replays the graph the first request captured: 4
+    # input copies, n + 1 pieces, each of the n hand-written kernel calls
+    # between them and the copy of its output, the output's clone; no level
+    # span
+    gn, attn = _kernel_calls(gen.spec)
+    assert table["psg.unet.eval"]["calls"] == 3 * (gn + attn) + 6
+    assert not any(f"psg.unet.{lvl}" in table for lvl in LEVELS)
+
+
+# -- the UNet's CUDA graphs ----------------------------------------------------------
+
+def _graph_counts():
+    c = profiling.counts()
+    return {k: c.get(f"unet_graph.{k}", 0) for k in ("capture", "replay", "eager")}
+
+
+def _unet_inputs(gen, batch, seed):
+    """A UNet call's inputs at the generator's sizes and dtype, from ``seed``."""
+    rng = torch.Generator(device=gen.device).manual_seed(seed)
+    dt = gen.compute_dtype or torch.float32
+    cfg, ls = gen.cfg, gen.latent_size
+    x = torch.randn((batch, ls, ls, cfg.model.latent_dim), generator=rng,
+                    device=gen.device).to(dt)
+    t = torch.randint(0, cfg.model.num_timesteps, (batch,), generator=rng,
+                      device=gen.device, dtype=torch.int32)
+    emb = torch.randn((batch, cfg.data.text_len, cfg.model.text_embedding_dim),
+                      generator=rng, device=gen.device).to(dt)
+    lens = torch.randint(1, cfg.data.text_len + 1, (batch, 1), generator=rng,
+                         device=gen.device)
+    mask = (torch.arange(cfg.data.text_len, device=gen.device) < lens).long()
+    return x, t, emb, mask
+
+
+def _kernel_calls(spec):
+    """The GN+SiLU and attention calls of one UNet evaluation: two norms a
+    ResBlock and the final one; self and cross attention a block with
+    attention."""
+    blocks = 2 * len(spec.channels) * spec.blocks_per_level + 1
+    attn_blocks = 2 * spec.blocks_per_level * sum(spec.attention_levels) + 1
+    return 2 * blocks + 1, 2 * attn_blocks
+
+
+def _unet(gen, inputs, graphs=None, params=None, dropout=None):
+    x, t, emb, mask = inputs
+    return unet_apply(gen.params["unet"] if params is None else params, x, t, emb,
+                      gen.spec, text_mask=mask, dtype=gen.compute_dtype, dropout=dropout,
+                      graphs=graphs)
+
+
+@pytest.mark.cuda
+def test_graphed_request_equals_the_eager_one(card):
+    """A DPM++ request with fused CFG and one restart: the first captures
+    one graph, the second replays it at every evaluation, and both images
+    equal the request's with the cache taken away."""
+    gen = _generator("cuda")
+
+    def request():
+        return torch.from_numpy(gen.generate_batch(
+            ["a small green creature with leaves"], STEPS, seed=7, restarts=1))
+
+    profiling.reset_counts("unet_graph.")
+    first = request()
+    assert _graph_counts() == {"capture": 1, "replay": 2 * STEPS - 1, "eager": 0}
+    profiling.reset_counts("unet_graph.")
+    second = request()
+    assert _graph_counts() == {"capture": 0, "replay": 2 * STEPS, "eager": 0}
+    assert len(gen.unet_graphs) == 1
+    graphs, gen.unet_graphs = gen.unet_graphs, None
+    eager = request()
+    gen.unet_graphs = graphs
+    assert torch.equal(first, eager) and torch.equal(second, eager)
+
+
+@pytest.mark.cuda
+def test_replays_call_the_kernels_entry_points(card, monkeypatch):
+    """Wrappers placed on ``ops.sdpa`` and ``ops.group_norm_silu`` after the
+    capture see each call of a replay, whose kernels launch inside them."""
+    gen = _generator("cuda")
+    inputs = _unet_inputs(gen, 2, 0)
+    with torch.no_grad():
+        want = _unet(gen, inputs)
+        _unet(gen, inputs, gen.unet_graphs)     # captures
+        seen = collections.Counter()
+
+        def watch(name, orig):
+            def wrapped(*args, **kwargs):
+                before = ops.launch_counts()
+                out = orig(*args, **kwargs)
+                seen[name] += 1
+                seen["launches"] += sum(ops.launch_counts().values()) - sum(before.values())
+                return out
+            return wrapped
+
+        monkeypatch.setattr(ops, "sdpa", watch("sdpa", ops.sdpa))
+        monkeypatch.setattr(ops, "group_norm_silu",
+                            watch("group_norm_silu", ops.group_norm_silu))
+        profiling.reset_counts("unet_graph.")
+        got = [_unet(gen, inputs, gen.unet_graphs) for _ in range(2)]
+    assert _graph_counts() == {"capture": 0, "replay": 2, "eager": 0}
+    gn, attn = _kernel_calls(gen.spec)
+    assert seen == {"sdpa": 2 * attn, "group_norm_silu": 2 * gn,
+                    "launches": 2 * (gn + attn)}
+    assert all(torch.equal(g, want) for g in got)
+
+
+@pytest.mark.cuda
+def test_graph_replays_keep_their_outputs_and_shapes_their_graphs(card):
+    gen = _generator("cuda")
+    graphs = gen.unet_graphs
+    a, b, four = _unet_inputs(gen, 2, 0), _unet_inputs(gen, 2, 1), _unet_inputs(gen, 4, 2)
+    with torch.no_grad():
+        want_a, want_b, want_four = (_unet(gen, ins) for ins in (a, b, four))
+        profiling.reset_counts("unet_graph.")
+        got = [_unet(gen, ins, graphs) for ins in (a, b, a)]
+        assert _graph_counts() == {"capture": 1, "replay": 2, "eager": 0}
+        # each output its own: the replays after it left it as it was
+        assert torch.equal(got[0], want_a) and torch.equal(got[1], want_b)
+        assert torch.equal(got[2], want_a)
+        assert len(graphs) == 1
+        assert torch.equal(_unet(gen, four, graphs), want_four)
+        assert torch.equal(_unet(gen, b, graphs), want_b)
+    assert _graph_counts() == {"capture": 2, "replay": 3, "eager": 0}
+    assert len(graphs) == 2
+
+
+@pytest.mark.cuda
+def test_graphs_keep_the_latest_shapes(card):
+    """One shape more than the cache holds evicts the least recently used,
+    which captures again at its next call; the others replay."""
+    gen = _generator("cuda")
+    graphs, kept = gen.unet_graphs, unet_mod._GRAPHS_KEPT
+    shapes = [_unet_inputs(gen, b, b) for b in range(1, kept + 2)]
+    with torch.no_grad():
+        want = [_unet(gen, ins) for ins in shapes]
+        profiling.reset_counts("unet_graph.")
+        for ins in shapes:
+            _unet(gen, ins, graphs)
+        assert len(graphs) == kept
+        assert torch.equal(_unet(gen, shapes[-1], graphs), want[-1])
+        assert _graph_counts() == {"capture": kept + 1, "replay": 1, "eager": 0}
+        assert torch.equal(_unet(gen, shapes[0], graphs), want[0])
+    assert _graph_counts() == {"capture": kept + 2, "replay": 1, "eager": 0}
+    assert len(graphs) == kept
+
+
+@pytest.mark.cuda
+def test_threads_sharing_the_graphs_keep_their_own_outputs(card):
+    """More threads than cores replay one cache, switching every
+    microsecond: each output equals its own inputs' eager one, which an
+    interleaving of copy-in, replay and copy-out would break."""
+    gen = _generator("cuda")
+    graphs = gen.unet_graphs
+    n_threads, rounds = 2 * (os.cpu_count() or 1) + 2, 4
+    inputs = [_unet_inputs(gen, 2, seed) for seed in range(n_threads)]
+    with torch.no_grad():
+        want = [_unet(gen, ins) for ins in inputs]
+        _unet(gen, inputs[0], graphs)          # capture before the threads start
+    got = [[] for _ in range(n_threads)]
+    errors = []
+
+    def worker(i):
+        try:
+            with torch.no_grad():
+                for _ in range(rounds):
+                    got[i].append(_unet(gen, inputs[i], graphs))
+        except Exception as e:   # reported below: a thread's error is not raised
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(n_threads)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(th.is_alive() for th in threads) and not errors, errors
+    torch.cuda.synchronize()
+    for outs, w in zip(got, want):
+        assert len(outs) == rounds and all(torch.equal(o, w) for o in outs)
+    assert len(graphs) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["another tree", "gradient", "dropout"])
+def test_graphs_leave_other_calls_eager(card, case):
+    gen = _generator("cuda")
+    inputs = _unet_inputs(gen, 2, 0)
+    tree = dict(gen.params["unet"]) if case == "another tree" else None
+
+    def call(graphs):
+        drop = (torch.Generator(device="cuda").manual_seed(5) if case == "dropout"
+                else None)
+        with torch.set_grad_enabled(case == "gradient"):
+            return _unet(gen, inputs, graphs, params=tree, dropout=drop)
+
+    want = call(None)
+    profiling.reset_counts("unet_graph.")
+    got = call(gen.unet_graphs)
+    assert torch.equal(got, want)
+    assert _graph_counts() == {"capture": 0, "replay": 0, "eager": 1}
+    assert len(gen.unet_graphs) == 0

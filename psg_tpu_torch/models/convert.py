@@ -6,7 +6,8 @@
 - torchvision VGG16 ``features`` -> ``models/vgg.py``
 - the reference's ``PokemonVAE`` and ``UNet`` state dicts
 - HF CLIP (``CLIPModel``, ViT-B/32) -> ``models/clip.py``
-- diffusers' ``UNet2DConditionModel`` (SD-1.5 naming) -> ``models/sd_unet.py``
+- diffusers' ``UNet2DConditionModel`` (SD-1.5's and SDXL's naming) ->
+  ``models/sd_unet.py``
 
 This package keeps torch's conv layout (OIHW), so a conv weight is copied
 as it is; a ``Linear`` weight ``[out, in]`` becomes ``[in, out]``, and
@@ -16,7 +17,8 @@ JAX package's converter on the same state dict, leaf for leaf and dtype for
 dtype, and raises ``KeyError`` on a missing key.
 
 A state dict may hold torch tensors or numpy arrays; ``load_torch_state_dict``
-reads a ``.pth`` / ``.bin`` file (tensors only, ``weights_only=True``).
+reads a ``.pth`` / ``.bin`` file (tensors only, ``weights_only=True``) or a
+``.safetensors`` one.
 """
 
 from __future__ import annotations
@@ -31,7 +33,12 @@ from psg_tpu_torch.models.vgg import _CONVS
 
 def load_torch_state_dict(path) -> Dict[str, torch.Tensor]:
     """A torch checkpoint's tensors (its ``state_dict`` entry if it has
-    one), on the CPU."""
+    one), on the CPU; a ``.safetensors`` file (diffusers' published UNets)
+    through ``safetensors``."""
+    if str(path).endswith(".safetensors"):
+        from safetensors.torch import load_file
+
+        return load_file(str(path), device="cpu")
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(obj, dict) and "state_dict" in obj:
         obj = obj["state_dict"]
@@ -293,31 +300,52 @@ def convert_clip(sd: Mapping, vision_layers: int = 12, text_layers: int = 12) ->
 # ---------------------------------------------------------------------------
 
 
-def convert_sd_unet(sd: Mapping, levels: int = 4, layers_per_block: int = 2) -> Dict:
+def convert_sd_unet(sd: Mapping, levels: int = 4, layers_per_block: int = 2, *,
+                    spec=None) -> Dict:
     """A diffusers ``UNet2DConditionModel`` state dict -> ``sd_unet_init``'s
-    tree: SD-1.5's topology (3x CrossAttnDown + Down, mid, Up + 3x
-    CrossAttnUp, transformer depth 1, ``use_linear_projection=False``)."""
+    tree.  Without ``spec``: SD-1.5's topology over ``levels`` levels (3x
+    CrossAttnDown + Down, mid, Up + 3x CrossAttnUp, transformer depth 1,
+    ``use_linear_projection=False``).  With an ``SDUNetSpec``: its layout,
+    SDXL's among them (attention by level, ``transformer_blocks.N`` by
+    depth, linear ``proj_in``/``proj_out`` stored ``[out, in]``, the
+    ``text_time`` ``add_embedding``)."""
+    if spec is None:
+        attention = [lvl < levels - 1 for lvl in range(levels)]
+        depth = [1] * levels
+        linear_proj = text_time = False
+    else:
+        levels, layers_per_block = len(spec.channels), spec.layers_per_block
+        attention = [spec.has_attention(lvl) for lvl in range(levels)]
+        depth = [spec.depth(lvl) for lvl in range(levels)]
+        linear_proj, text_time = spec.linear_projection, spec.text_time
 
-    def attention(lp):
+    def attention_(lp):
         return {"to_q": {"w": _tt(sd, lp + "to_q.weight")},
                 "to_k": {"w": _tt(sd, lp + "to_k.weight")},
                 "to_v": {"w": _tt(sd, lp + "to_v.weight")},
                 "to_out": _linear(sd, lp + "to_out.0")}
 
-    def transformer(tp):
-        bp = tp + "transformer_blocks.0."
+    def block(bp):
         return {
-            "norm": _norm(sd, tp + "norm"),
-            "proj_in": _conv(sd, tp + "proj_in"),
             "norm1": _norm(sd, bp + "norm1"),
-            "attn1": attention(bp + "attn1."),
+            "attn1": attention_(bp + "attn1."),
             "norm2": _norm(sd, bp + "norm2"),
-            "attn2": attention(bp + "attn2."),
+            "attn2": attention_(bp + "attn2."),
             "norm3": _norm(sd, bp + "norm3"),
             "ff_proj": _linear(sd, bp + "ff.net.0.proj"),
             "ff_out": _linear(sd, bp + "ff.net.2"),
-            "proj_out": _conv(sd, tp + "proj_out"),
         }
+
+    def transformer(tp, lvl):
+        proj = _linear if linear_proj else _conv
+        out = {"norm": _norm(sd, tp + "norm"), "proj_in": proj(sd, tp + "proj_in")}
+        if depth[lvl] == 1 and not linear_proj:      # SD-1.5's flat dict
+            out.update(block(tp + "transformer_blocks.0."))
+        else:
+            out["transformer_blocks"] = [block(tp + f"transformer_blocks.{i}.")
+                                         for i in range(depth[lvl])]
+        out["proj_out"] = proj(sd, tp + "proj_out")
+        return out
 
     def resnet(rp):
         out = {
@@ -335,30 +363,32 @@ def convert_sd_unet(sd: Mapping, levels: int = 4, layers_per_block: int = 2) -> 
         "conv_in": _conv(sd, "conv_in"),
         "time_embedding": {"linear_1": _linear(sd, "time_embedding.linear_1"),
                            "linear_2": _linear(sd, "time_embedding.linear_2")},
-        "down_blocks": [],
-        "up_blocks": [],
-        "conv_norm_out": _norm(sd, "conv_norm_out"),
-        "conv_out": _conv(sd, "conv_out"),
     }
+    if text_time:
+        p["add_embedding"] = {"linear_1": _linear(sd, "add_embedding.linear_1"),
+                              "linear_2": _linear(sd, "add_embedding.linear_2")}
+    p.update({"down_blocks": [], "up_blocks": [],
+              "conv_norm_out": _norm(sd, "conv_norm_out"),
+              "conv_out": _conv(sd, "conv_out")})
     for lvl in range(levels):
         dp = f"down_blocks.{lvl}."
         blk = {"resnets": [resnet(dp + f"resnets.{j}.") for j in range(layers_per_block)],
-               "attentions": ([transformer(dp + f"attentions.{j}.")
+               "attentions": ([transformer(dp + f"attentions.{j}.", lvl)
                                for j in range(layers_per_block)]
-                              if lvl < levels - 1 else None)}
+                              if attention[lvl] else None)}
         if f"{dp}downsamplers.0.conv.weight" in sd:
             blk["downsampler"] = _conv(sd, dp + "downsamplers.0.conv")
         p["down_blocks"].append(blk)
 
     p["mid_block"] = {"resnets": [resnet("mid_block.resnets.0."),
                                   resnet("mid_block.resnets.1.")],
-                      "attentions": [transformer("mid_block.attentions.0.")]}
+                      "attentions": [transformer("mid_block.attentions.0.", levels - 1)]}
     for lvl in range(levels):
-        up = f"up_blocks.{lvl}."
+        up, mirror = f"up_blocks.{lvl}.", levels - 1 - lvl
         blk = {"resnets": [resnet(up + f"resnets.{j}.") for j in range(layers_per_block + 1)],
-               "attentions": ([transformer(up + f"attentions.{j}.")
+               "attentions": ([transformer(up + f"attentions.{j}.", mirror)
                                for j in range(layers_per_block + 1)]
-                              if lvl > 0 else None)}
+                              if attention[mirror] else None)}
         if f"{up}upsamplers.0.conv.weight" in sd:
             blk["upsampler"] = _conv(sd, up + "upsamplers.0.conv")
         p["up_blocks"].append(blk)

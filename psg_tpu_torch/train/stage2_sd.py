@@ -1,10 +1,13 @@
-"""Stage 2 on the SD-1.5-family UNet with a trainable text encoder (port of
-``psg_tpu/train/stage2_sd.py``, selected by ``--use-diffusers``).
+"""Stage 2 on the Stable-Diffusion-family UNet with a trainable text encoder
+(port of ``psg_tpu/train/stage2_sd.py``, selected by ``--use-diffusers``).
 
 - backbone: the SD UNet wrapper (``models/sd_unet.py``) adapted to the
-  8-channel latent; pretrained weights from ``$PSG_TPU_SD_UNET`` (default
-  ``weights/sd15_unet.ckpt``): a ``.ckpt`` holds the UNet tree in the JAX
-  layout, a ``.pth`` / ``.bin`` a diffusers state dict
+  8-channel latent, shaped by the configuration's ``sd_unet`` section (a
+  diffusers ``unet/config.json``: SD-1.5's, SDXL base's) where it has one,
+  else SD-1.5 (``tiny-test``: the tiny SD spec); pretrained weights from
+  ``$PSG_TPU_SD_UNET`` (default ``weights/sd15_unet.ckpt``): a ``.ckpt``
+  holds the UNet tree in the JAX layout, a ``.pth`` / ``.bin`` /
+  ``.safetensors`` a diffusers state dict in the spec's naming
   (``convert_sd_unet``).  A named file must exist and fit; with nothing
   named and no default file the UNet is drawn from ``cfg.seed``.
 - the VAE (frozen) and the text encoder (trained) come from the stage-1
@@ -20,7 +23,15 @@
   ``desc_mask``), the reparameterized latent clamped to +-latent_clamp,
   ``t`` uniform, the cosine schedule, MSE on the noise.  As in the JAX
   step every leaf gets a gradient, frozen ones included, and the logged
-  ``grad_norm`` covers them all.
+  ``grad_norm`` covers them all.  A UNet with SDXL's ``text_time``
+  embedding also gets the pooled text (the description's masked mean) and
+  the time ids ``(S, S, 0, 0, S, S)`` for the sprite size ``S``: original
+  and target size, no crop; they are made on the device once per batch
+  size.
+- spans (``utils/profiling.span``, no-ops off the profiler), as
+  ``DiffusionTrainer`` names them: ``psg.train.step`` around a step,
+  ``psg.train.grads`` around ``psg.train.forward`` and
+  ``psg.train.backward``, and ``psg.train.optimizer``.
 - samples: ``ddpm_sample_x0`` (50 strided steps), then ``vae_decode``.
 
 On the card GroupNorm+SiLU and flash attention run their kernels forward
@@ -95,14 +106,26 @@ from psg_tpu_torch.train.optim import (
 )
 from psg_tpu_torch.train.state import TrainState
 from psg_tpu_torch.utils.images import save_image_grid
+from psg_tpu_torch.utils.profiling import span
 
 SD_UNET_DEFAULT = "weights/sd15_unet.ckpt"
 _VAL_SEED_OFFSET = 4           # the validation draws' generator: cfg.seed + 4
 _SAMPLE_SEED_OFFSET = 40_000   # sample grid of epoch e: cfg.seed + 40000 + e
 _SD_SEED_OFFSET = 3            # the random-init SD UNet: cfg.seed + 3
+_SPAN_STEP = "psg.train.step"
+_SPAN_GRADS = "psg.train.grads"
+_SPAN_FORWARD = "psg.train.forward"
+_SPAN_BACKWARD = "psg.train.backward"
+_SPAN_OPTIMIZER = "psg.train.optimizer"
 
 
 def sd_spec_from_config(cfg: Config) -> SDUNetSpec:
+    """The configuration's ``sd_unet`` section (a diffusers UNet config,
+    its ``cross_attention_dim`` included) where it has one; else SD-1.5 at
+    ``model.cross_attention_dim`` (``tiny-test``: the tiny SD spec)."""
+    section = (cfg.extra or {}).get("sd_unet")
+    if section is not None:
+        return SDUNetSpec.from_diffusers(section)
     m = cfg.model
     if "tiny-test" in m.bert_model:
         return SDUNetSpec.tiny_test(text_dim=m.cross_attention_dim)
@@ -204,6 +227,7 @@ class SDDiffusionTrainer:
             device=self.device).manual_seed(cfg.seed))
         self.start_epoch = 0
         self.best_val = float("inf")
+        self._time_ids = {}      # batch size -> the [B, 6] time ids on the device
 
     # -- setup ---------------------------------------------------------------
 
@@ -235,9 +259,10 @@ class SDDiffusionTrainer:
     def _load_sd_base(self):
         """The pretrained SD UNet (4 channels, before the adaptation), or
         None.  ``$PSG_TPU_SD_UNET`` must name an existing file; the default
-        path may be missing (random init).  ``.pth`` / ``.bin`` go through
-        ``convert_sd_unet``, anything else is read as a checkpoint of the
-        UNet tree; either must fit SD's shapes."""
+        path may be missing (random init).  ``.pth`` / ``.bin`` /
+        ``.safetensors`` go through ``convert_sd_unet`` in the spec's
+        naming, anything else is read as a checkpoint of the UNet tree;
+        either must fit the spec's shapes."""
         named = os.environ.get("PSG_TPU_SD_UNET")
         path = Path(named or SD_UNET_DEFAULT)
         if not path.exists():
@@ -246,8 +271,8 @@ class SDDiffusionTrainer:
             self.log.warning("no pretrained SD UNet found: random init")
             return None
         template = sd_unet_init(torch.Generator(device=self.device).manual_seed(0), self.spec)
-        if path.suffix in (".pth", ".bin"):
-            tree_ = convert_sd_unet(load_torch_state_dict(path))
+        if path.suffix in (".pth", ".bin", ".safetensors"):
+            tree_ = convert_sd_unet(load_torch_state_dict(path), spec=self.spec)
         else:
             tree_ = bridge.from_jax(read_checkpoint(path))
         self.log.info("loading pretrained SD UNet from %s", path)
@@ -260,6 +285,19 @@ class SDDiffusionTrainer:
         return sd_batch(batch, self.device)
 
     # -- the loss ------------------------------------------------------------
+
+    def _conditioning(self, text_mask) -> dict:
+        """The UNet's added conditioning: with ``text_time``, the text mask
+        (for the pooled text) and the time ids of a sprite of the
+        configured size; none for SD-1.5."""
+        if not self.spec.text_time:
+            return {}
+        b = text_mask.shape[0]
+        if b not in self._time_ids:
+            s = float(self.cfg.data.image_size)
+            self._time_ids[b] = torch.tensor([s, s, 0.0, 0.0, s, s],
+                                             device=self.device).expand(b, 6).contiguous()
+        return {"text_mask": text_mask, "time_ids": self._time_ids[b]}
 
     def _draw(self, draws, name, make):
         if draws is not None and name in draws:
@@ -287,7 +325,8 @@ class SDDiffusionTrainer:
             noisy = self.schedule.add_noise(latent, noise, t)
         pred = sd_wrapper_apply(params["sd"], noisy.to(text_emb.dtype), t, text_emb,
                                 self.spec, text_bias=text_bias_from_mask(batch["desc_mask"]),
-                                dtype=self.compute_dtype)
+                                dtype=self.compute_dtype,
+                                **self._conditioning(batch["desc_mask"]))
         loss = mse_loss(pred, noise, sample_weights=sample_weights)
         if self.mesh_run is not None:   # averaged over 'data': the global batch's loss
             loss = loss * self.mesh_run.loss_scale(sample_weights, b)
@@ -301,27 +340,33 @@ class SDDiffusionTrainer:
         gives."""
         st = self.state
         mr = self.mesh_run
-        gen, params = st.rng, st.params
-        if mr is not None:
-            gen, draws, params = mr.step_inputs(st, batch["image"].shape[0], draws)
-        loss = self._noise_loss(params, batch, gen, draws=draws)
-        paths, leaves = zip(*tree.items(params))
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(grads, leaves)]
-        loss = loss.detach()
-        if mr is not None:
-            grads, loss = mr.reduce_grads(paths, grads), mr.mean(loss)
-        it = iter(grads)
-        return loss, tree.map(lambda _: next(it), st.params)
+        with span(_SPAN_GRADS):
+            gen, params = st.rng, st.params
+            if mr is not None:
+                gen, draws, params = mr.step_inputs(st, batch["image"].shape[0], draws)
+            with span(_SPAN_FORWARD):
+                loss = self._noise_loss(params, batch, gen, draws=draws)
+            paths, leaves = zip(*tree.items(params))
+            with span(_SPAN_BACKWARD):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+            grads = [g if g is not None else torch.zeros_like(p)
+                     for g, p in zip(grads, leaves)]
+            loss = loss.detach()
+            if mr is not None:
+                grads, loss = mr.reduce_grads(paths, grads), mr.mean(loss)
+            it = iter(grads)
+            return loss, tree.map(lambda _: next(it), st.params)
 
     def _apply_update(self, loss, grads) -> Dict:
-        stats = self.tx.update(self.state.params, grads, self.state.opt_state,
-                               layout=self.state.layout)
+        with span(_SPAN_OPTIMIZER):
+            stats = self.tx.update(self.state.params, grads, self.state.opt_state,
+                                   layout=self.state.layout)
         self.state.step += 1
         return {"loss": loss, "grad_norm": stats["grad_norm"]}
 
     def _step(self, batch, draws=None) -> Dict:
-        return self._apply_update(*self._grads(batch, draws))
+        with span(_SPAN_STEP):
+            return self._apply_update(*self._grads(batch, draws))
 
     @torch.no_grad()
     def _eval(self, batch, valid: int, draws=None) -> Dict:
@@ -344,10 +389,12 @@ class SDDiffusionTrainer:
         text_emb = text_encoder_apply(params["text"], text_ids, text_mask, self.bert_cfg,
                                       dtype=self.compute_dtype)
         bias = text_bias_from_mask(text_mask)
+        cond = self._conditioning(text_mask)
 
         def denoise(x, t):
             return sd_wrapper_apply(params["sd"], x.to(text_emb.dtype), t, text_emb,
-                                    self.spec, text_bias=bias, dtype=self.compute_dtype)
+                                    self.spec, text_bias=bias, dtype=self.compute_dtype,
+                                    **cond)
 
         shape = (num, self.latent_size, self.latent_size, self.cfg.model.latent_dim)
         latents = ddpm_sample_x0(denoise, self.schedule, generator, shape=shape,

@@ -4,6 +4,7 @@ the card.
 
     python3 scripts/torch_profile_train.py [--stage 0|1|2|3] [--steps 3] [--trace PATH]
     python3 scripts/torch_profile_train.py --stage 2 --use-diffusers [--steps 3]
+    python3 scripts/torch_profile_train.py --use-diffusers --config benchmark/configs/sdxl.json
     python3 scripts/torch_profile_train.py --fast-vs-classic [--steps 3]
 
 Builds the trainer of the stage at config/train_config.yaml's full width
@@ -44,6 +45,12 @@ UNet with 768-d cross-attention and BERT-base trained with the 'minimal'
 strategy, ``train/stage2_sd.py``): the text encode, the VAE encode (no
 gradient) with q_sample, the SD UNet, each with autograd recording as in
 the step; the backward (every leaf, frozen ones included); the optimizer.
+``--config FILE`` builds the trainer from a JSON configuration dict
+instead (a benchmark configuration's ``config`` entry, e.g.
+``benchmark/configs/sdxl.json``: the SDXL base UNet trained in full, shaped
+by its ``sd_unet`` section, whose ``psg.sdunet.*`` spans the ``spans``
+field then lists); the corpus, experiment directory and vocabulary stay
+the script's.
 
 ``--fast-vs-classic``: config/r3_evidence.yaml (the device-resident fast
 path's recipe: batch 16, EMA 0.9995, bf16 first moment, warmup-cosine) at
@@ -274,8 +281,10 @@ def profile_sd(cfg, args):
 
     noisy, t = measure_out("VAE encode + q_sample (no gradient)", encode, args.steps)
     bias = text_bias_from_mask(batch["desc_mask"])
+    cond = tr._conditioning(batch["desc_mask"])
     measure("SD UNet forward", lambda _: sd_wrapper_apply(
-        p["sd"], noisy.to(emb.dtype), t, emb, tr.spec, text_bias=bias, dtype=dt), args.steps)
+        p["sd"], noisy.to(emb.dtype), t, emb, tr.spec, text_bias=bias, dtype=dt, **cond),
+        args.steps)
 
     def loss(_):
         return tr._noise_loss(p, batch, tr.state.rng)
@@ -506,7 +515,9 @@ def main():
     ap.add_argument("--steps", type=int, default=3, help="unprofiled runs per part")
     ap.add_argument("--trace", help="write the whole step's chrome trace here")
     ap.add_argument("--use-diffusers", action="store_true",
-                    help="stage 2 on the SD-1.5 UNet (train/stage2_sd.py)")
+                    help="stage 2 on the SD UNet (train/stage2_sd.py)")
+    ap.add_argument("--config", help="a JSON config dict in place of train_config.yaml "
+                                     "(e.g. benchmark/configs/sdxl.json)")
     ap.add_argument("--fast-vs-classic", action="store_true",
                     help="the fast and the classic step of stages 1-3 (r3_evidence.yaml)")
     args = ap.parse_args()
@@ -514,7 +525,7 @@ def main():
         sys.exit("torch_profile_train: needs an NVIDIA CUDA device")
 
     from psg_tpu_torch import ops
-    from psg_tpu_torch.core.config import load_config
+    from psg_tpu_torch.core.config import config_from_dict, load_config
     from psg_tpu_torch.data.synthetic import write_sprite_corpus
     from psg_tpu_torch.ops import cuda_build
 
@@ -530,10 +541,16 @@ def main():
         (Path(tmp) / "exp").mkdir()
         (Path(tmp) / "exp" / "vocab.txt").write_bytes(
             (ROOT / "experiments" / "evidence_r5c_vae" / "vocab.txt").read_bytes())
-        config = "r3_evidence.yaml" if args.fast_vs_classic else "train_config.yaml"
-        cfg = load_config(ROOT / "config" / config,
-                          [f"experiment_dir={Path(tmp) / 'exp'}", f"data.csv_path={csv}",
-                           f"data.image_dir={images}"])
+        if args.config:
+            raw = json.loads(Path(args.config).read_text())
+            cfg = config_from_dict(raw.get("config", raw))
+            cfg.experiment_dir = str(Path(tmp) / "exp")
+            cfg.data.csv_path, cfg.data.image_dir = str(csv), str(images)
+        else:
+            config = "r3_evidence.yaml" if args.fast_vs_classic else "train_config.yaml"
+            cfg = load_config(ROOT / "config" / config,
+                              [f"experiment_dir={Path(tmp) / 'exp'}", f"data.csv_path={csv}",
+                               f"data.image_dir={images}"])
         time_backwards()
         if args.fast_vs_classic:
             fast_vs_classic(cfg, args)

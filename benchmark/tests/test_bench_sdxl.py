@@ -101,10 +101,15 @@ def test_another_unet_stops_before_building(monkeypatch):
 
 
 def test_traced_rehearsal():
+    from psg_tpu_torch.utils.profiling import HOST_READS, reset_counts
+
+    reset_counts(HOST_READS)      # the reader counts from process start, as one run does
     line = rehearse(trace=True)
     assert line["correct"] is True
-    assert set(line["metrics"]) == {"mfu.sdxl"}
-    assert 0.0 < line["metrics"]["mfu.sdxl"]["value"]
+    assert set(line["metrics"]) == {"mfu.train", "host_reads_per_step.train"}
+    assert 0.0 < line["metrics"]["mfu.train"]["value"]
+    # the optimizer's one read of its statistics a step
+    assert line["metrics"]["host_reads_per_step.train"]["value"] == 1.0
 
 
 def test_control_fails_at_tiny_size():

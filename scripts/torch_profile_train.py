@@ -180,6 +180,9 @@ def measure(name, fn, reps, setup=None, trace=None):
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             host.append((evt.self_cpu_time_total, evt.count, evt.key[:60]))
             continue
+        # the program's spans are listed as device ranges too: not kernels
+        if evt.key.startswith("psg."):
+            continue
         us = evt.self_device_time_total
         kernels += us
         launches += evt.count

@@ -1284,8 +1284,8 @@ def phase_train_card_vs_cpu(tmp):
               "dropout": _dropout_masks(rs, cpu.spec, b, cpu.spec.attn_dropout)}
              for _ in batches]
     ops.reset_launch_counts()
-    loss_cpu, g_cpu = cpu._grads(cpu._batch(batches[0]), draws[0])
-    loss_card, g_card = card._grads(card._batch(batches[0]), draws[0])
+    loss_cpu, g_cpu = cpu._grads(cpu._batch(batches[0]), draws=draws[0])
+    loss_card, g_card = card._grads(card._batch(batches[0]), draws=draws[0])
     ops_counts = ops.launch_counts()
     loss_rel = abs(float(loss_card) - float(loss_cpu)) / abs(float(loss_cpu))
     grad_err = 0.0
@@ -1300,8 +1300,8 @@ def phase_train_card_vs_cpu(tmp):
     cpu._apply_update(loss_cpu, g_cpu)
     card._apply_update(loss_card, g_card)
     for batch, d in zip(batches[1:], draws[1:]):
-        cpu._step(cpu._batch(batch), d)
-        card._step(card._batch(batch), d)
+        cpu._step(cpu._batch(batch), draws=d)
+        card._step(card._batch(batch), draws=d)
     param_err = max((a.detach().cpu() - r.detach()).abs().max().item() for a, r in zip(
         tree.leaves(card.state.params), tree.leaves(cpu.state.params)))
     ema_err = max((a.cpu() - r).abs().max().item() for a, r in zip(
@@ -1323,7 +1323,7 @@ def predicted_train_launches(trainer):
     """Launches of one training step: forward, a text encode, a VAE encode
     and a UNet evaluation; backward, the flash kernel's for the UNet's
     attention calls only (the text encoder and the VAE encoder run under
-    ``no_grad``, stage2_diffusion.py ``_text`` and ``_noise_loss_emb``;
+    ``no_grad``, stage2_diffusion.py ``_text`` and ``_noise_loss``;
     GN+SiLU and the spatial block recompute their plain versions)."""
     unet = predicted_launches(trainer, 1, text_encodes=0, encodes=0, decodes=0)
     return with_flash_backward(
@@ -1369,7 +1369,7 @@ def phase_train_full_width(exp, corpus, vae_checkpoint):
 
     def timed_step(batch, draws=None):   # each step's wall, host clock to a sync
         t = time.perf_counter()
-        parts = orig_step(batch, draws)
+        parts = orig_step(batch, draws=draws)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
         step_loss.append(float(parts["loss"]))
@@ -1655,8 +1655,8 @@ def phase_stage1_card_vs_cpu(tmp):
              for _ in batches]
     klw = cpu.kl_weight(1)
     ops.reset_launch_counts()
-    parts_cpu, g_cpu = cpu._grads(cpu._batch(batches[0]), klw, draws[0])
-    parts_card, g_card = card._grads(card._batch(batches[0]), klw, draws[0])
+    parts_cpu, g_cpu = cpu._grads(cpu._batch(batches[0]), klw, draws=draws[0])
+    parts_card, g_card = card._grads(card._batch(batches[0]), klw, draws=draws[0])
     counts = ops.launch_counts()
     grad_err, determined = 0.0, []
     for (path, r), g in zip(tree.items(g_cpu), tree.leaves(g_card)):
@@ -1670,8 +1670,8 @@ def phase_stage1_card_vs_cpu(tmp):
     cpu._apply_update(parts_cpu, g_cpu, klw)
     card._apply_update(parts_card, g_card, klw)
     for batch, d in zip(batches[1:], draws[1:]):
-        a = cpu._step(cpu._batch(batch), klw, d)
-        b = card._step(card._batch(batch), klw, d)
+        a = cpu._step(cpu._batch(batch), klw, draws=d)
+        b = card._step(card._batch(batch), klw, draws=d)
         losses.append((float(a["total_loss"]), float(b["total_loss"])))
     loss_rel = max(abs(b - a) / abs(a) for a, b in losses)
     if not loss_rel <= S1_LOSS_RTOL:
@@ -1737,7 +1737,7 @@ def phase_stage1_full_width(exp, corpus):
 
     def timed_step(batch, kl_weight, draws=None):
         t = time.perf_counter()
-        parts = orig_step(batch, kl_weight, draws)
+        parts = orig_step(batch, kl_weight, draws=draws)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
         step_loss.append(float(parts["total_loss"]))
@@ -1872,8 +1872,8 @@ def phase_stage3_card_vs_cpu(tmp):
     draws = [{"rep_noise": torch.from_numpy(rs.randn(*lat).astype(np.float32))}
              for _ in batches]
     ops.reset_launch_counts()
-    parts_cpu, g_cpu = cpu._grads(cpu._batch(batches[0]), draws[0])
-    parts_card, g_card = card._grads(card._batch(batches[0]), draws[0])
+    parts_cpu, g_cpu = cpu._grads(cpu._batch(batches[0]), draws=draws[0])
+    parts_card, g_card = card._grads(card._batch(batches[0]), draws=draws[0])
     counts = ops.launch_counts()
     grad_err, keep = 0.0, []
     for (path, r), g in zip(tree.items(g_cpu), tree.leaves(g_card)):
@@ -1896,8 +1896,8 @@ def phase_stage3_card_vs_cpu(tmp):
     cpu.switch_to_joint_training()
     card.switch_to_joint_training()
     for batch, d in zip(batches[1:], draws[1:]):
-        a = cpu._step(cpu._batch(batch), d)
-        b = card._step(card._batch(batch), d)
+        a = cpu._step(cpu._batch(batch), draws=d)
+        b = card._step(card._batch(batch), draws=d)
         losses.append((float(a["total_loss"]), float(b["total_loss"])))
     loss_rel = max(abs(b - a) / abs(a) for a, b in losses)
     if not loss_rel <= S1_LOSS_RTOL:
@@ -1985,7 +1985,7 @@ def phase_stage3_full_width(exp, corpus, vae_checkpoint, diffusion_checkpoint):
 
     def timed_step(batch, draws=None):
         t = time.perf_counter()
-        parts = orig_step(batch, draws)
+        parts = orig_step(batch, draws=draws)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
         step_loss.append(float(parts["total_loss"]))
@@ -2424,7 +2424,8 @@ def phase_fast_card_vs_cpu(tmp):
     klw = cpu.kl_weight(1)
     draws = _fast_draws(rs, cpu, 3, loss=rep_noise(cpu))
     out["stage1"] = _fast_compare(
-        "stage 1", cpu, card, [(1, lambda t: (lambda b, d: t._step(b, klw, d)), draws)],
+        "stage 1", cpu, card, [(1, lambda t: (lambda b, draws: t._step(b, klw, draws=draws)),
+                                draws)],
         S1_GRAD_RTOL, S1_LOSS_RTOL, S1_PARAM_ATOL, loss_key="total_loss")
     del cpu, card
 
@@ -2662,11 +2663,11 @@ def phase_fast_full_width(tmp, corpus):
             return out
         return save
 
-    for cls in classes:
-        cls._step = wrap_step(cls.__dict__["_step"])
-        cls.train = wrap_train(cls.__dict__["train"])
+    for cls in classes:       # each class's own wraps of what it inherits
+        cls._step = wrap_step(cls._step)
+        cls.train = wrap_train(cls.train)
         cls._setup_fast_data = wrap_setup(cls._setup_fast_data)
-        cls.validate_fast = wrap_validate(cls.__dict__["validate_fast"])
+        cls.validate_fast = wrap_validate(cls.validate_fast)
     CheckpointManager.save = wrap_save(CheckpointManager.__dict__["save"], "full state")
     CheckpointManager.save_best_light = wrap_save(
         CheckpointManager.__dict__["save_best_light"], "light best")
@@ -2821,8 +2822,8 @@ def phase_sd_card_vs_cpu(tmp):
               "noise": torch.from_numpy(rs.randn(*lat).astype(np.float32))}
              for _ in batches]
     ops.reset_launch_counts()
-    loss_cpu, g_cpu = cpu._grads(cpu._batch(batches[0]), draws[0])
-    loss_card, g_card = card._grads(card._batch(batches[0]), draws[0])
+    loss_cpu, g_cpu = cpu._grads(cpu._batch(batches[0]), draws=draws[0])
+    loss_card, g_card = card._grads(card._batch(batches[0]), draws=draws[0])
     counts = ops.launch_counts()
     want = predicted_sd_launches(card, 1, encodes=1, grad=True)
     if counts != want:
@@ -2840,8 +2841,8 @@ def phase_sd_card_vs_cpu(tmp):
     cpu._apply_update(loss_cpu, g_cpu)
     card._apply_update(loss_card, g_card)
     for batch, d in zip(batches[1:], draws[1:]):
-        cpu._step(cpu._batch(batch), d)
-        card._step(card._batch(batch), d)
+        cpu._step(cpu._batch(batch), draws=d)
+        card._step(card._batch(batch), draws=d)
     param_err = max((a.detach().cpu() - r.detach()).abs().max().item() for a, r in zip(
         tree.leaves(card.state.params), tree.leaves(cpu.state.params)))
     if not param_err <= TRAIN_PARAM_ATOL:
@@ -2894,7 +2895,7 @@ def phase_sd_full_width(exp, corpus, vae_checkpoint):
 
     def timed_step(batch, draws=None):
         t = time.perf_counter()
-        parts = orig_step(batch, draws)
+        parts = orig_step(batch, draws=draws)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
         step_loss.append(float(parts["loss"]))
@@ -3047,13 +3048,13 @@ def phase_scale_out(exp, corpus, vae_checkpoint, sprites):
             step_s, losses, orig, orig_grads = [], [], trainer._step, trainer._grads
 
             def grads_seen(batch, draws=None):
-                out = orig_grads(batch, draws)
+                out = orig_grads(batch, draws=draws)
                 on_grads(len(losses), dict(tree.items(out[1])))
                 return out
 
             def timed(batch, draws=None):
                 t = time.perf_counter()
-                parts = orig(batch, draws)
+                parts = orig(batch, draws=draws)
                 torch.cuda.synchronize()
                 step_s.append(time.perf_counter() - t)
                 losses.append(float(parts["loss"]))

@@ -13,18 +13,15 @@ Epoch semantics differ from the classic loader's: each minibatch is drawn
 without replacement within the batch (the top ``batch_size`` of ``n``
 uniforms, in their descending order) but independently across steps.
 
-A trainer gains the path by inheriting ``FastPath``; it provides ``cfg``,
-``ds``, ``device``, ``state`` (whose ``rng`` is the trainer's generator),
-``ckpt``, ``log``, ``metrics``, the two loaders, ``EPOCHS`` (its epoch
-count's field of ``cfg.training``), ``_val_generator``, ``_meta``,
-``train_epoch_fast``, ``validate_fast``, ``generate_samples`` and
-``skipped_batches``.  The order of one fast step's draws
-from that generator: the index uniforms, the augmentation parameters, the
-caption-variant index (stage 2 with ``extra.caption_augment``), then the
-loss's own draws.  Every one of them can be given instead (``draws``:
-``uniforms`` [n] or ``idx`` [b], ``augment`` as ``draw_augment_params``
-returns it, ``v`` [b], and the loss's keys), which is how the tests inject
-the JAX package's.  The span ``psg.train.fast_batch`` covers
+A ``StageTrainer`` (``train/trainer.py``) gains the path by inheriting
+``FastPath`` first; ``train()`` then takes it with ``training.fast_path``
+off a mesh (the JAX package's fast path has no mesh either).  The order of
+one fast step's draws from the trainer's generator (``state.rng``): the
+index uniforms, the augmentation parameters, the caption-variant index
+(stage 2 with ``extra.caption_augment``), then the loss's own draws.  Every
+one of them can be given instead (``draws``: ``uniforms`` [n] or ``idx``
+[b], ``augment`` as ``draw_augment_params`` returns it, ``v`` [b], and the
+loss's keys), which is how the tests inject the JAX package's.  The span ``psg.train.fast_batch`` covers
 ``_fast_batch``.
 """
 
@@ -114,9 +111,15 @@ def draw_minibatch(generator: Optional[torch.Generator], n: int, batch_size: int
 
 class FastPath:
     """The fast path's data, batches and loops, shared by the stage-1, 2
-    and 3 trainers (see the module docstring for what a trainer provides)."""
+    and 3 trainers (see the module docstring)."""
 
     caption_augment = 0          # stage 2 sets its caption-variant count
+    GRAD_NORM_MAX = True         # the epoch's metrics include the largest grad_norm
+
+    def train(self) -> Path:
+        if self.cfg.training.fast_path and self.mesh is None:
+            return self._train_fast()
+        return super().train()
 
     def _fast_text_emb_fn(self) -> Optional[Callable]:
         """Stage 2 precomputes its frozen text embeddings; stages 1 and 3
@@ -173,11 +176,11 @@ class FastPath:
             return batch
 
     def _fast_epoch(self, step: Callable, draws: Optional[List[Dict]] = None) -> Dict:
-        """``step(batch, draws)`` over ``_fast_len`` drawn batches
+        """``step(batch, draws=...)`` over ``_fast_len`` drawn batches
         (``draws[i]`` for step i when given).  Returns each metric as a list
         over the steps; the metrics a step leaves on the device are stacked
         and read once, after the last step."""
-        outs = [step(self._fast_batch(d), d)
+        outs = [step(self._fast_batch(d), draws=d)
                 for d in (draws if draws is not None else [None] * self._fast_len)]
         on_device = [k for k, v in outs[0].items() if isinstance(v, torch.Tensor)]
         read = torch.stack([torch.stack([o[k].float() for k in on_device]) for o in outs]
@@ -186,29 +189,38 @@ class FastPath:
         ys.update(zip(on_device, read))
         return ys
 
-    def _fast_validate(self, loss: Callable, draws: Optional[List[Dict]] = None) -> float:
-        """The mean of ``loss(batch, generator, draws, weights)`` over the
-        eval batches, weighted by their real samples.  One generator
-        (``_val_generator``) draws for all of them in turn, so each batch
-        has its own draws, as each has its own folded key in the JAX
-        package; ``draws[i]`` replaces batch i's."""
-        ev = self._val_data
-        gen = self._val_generator()
+    # -- the loops -----------------------------------------------------------
+
+    def train_epoch_fast(self, epoch: int, draws=None) -> Dict[str, float]:
+        """One fast epoch (``_fast_epoch``); each metric's mean is logged."""
+        args = self._epoch_args(epoch)
+        ys = self._fast_epoch(lambda batch, draws: self._step(batch, *args, draws=draws), draws)
+        stats = {k: float(np.mean(v)) for k, v in ys.items()}
+        if self.GRAD_NORM_MAX:
+            stats["grad_norm_max"] = float(np.max(ys["grad_norm"]))
+        self.metrics.scalars(stats, self.state.step, prefix=f"{self.STAGE}_train/")
+        return stats
+
+    def validate_fast(self, epoch: int, draws=None) -> float:
+        """The validation loss over the eval batches, weighted by their real
+        samples.  One generator (``_val_generator``) draws for all of them in
+        turn, so each batch has its own draws, as each has its own folded
+        key in the JAX package; ``draws[i]`` replaces batch i's."""
+        args, ev, gen = self._epoch_args(epoch), self._val_data, self._val_generator()
         total = count = torch.zeros((), device=self.device)
         for i in range(ev["images"].shape[0]):
             batch = {k: v[i] for k, v in ev.items() if k not in ("images", "weight")}
             batch["image"] = normalize_batch(ev["images"][i])
             w = ev["weight"][i]
             with torch.no_grad():
-                value = loss(batch, gen, draws[i] if draws is not None else None, w)
-            total = total + value * w.sum()
+                loss, _ = self._loss(self.state.params, batch, gen,
+                                     draws[i] if draws is not None else None, *args,
+                                     weights=w, train=False)
+            total = total + loss * w.sum()
             count = count + w.sum()
-        return float(total / count.clamp_min(1.0))
-
-    # -- the loop ------------------------------------------------------------
-
-    def _before_fast_epoch(self, epoch: int) -> None:
-        """Stage 3 switches to its joint phase here."""
+        val = float(total / count.clamp_min(1.0))
+        self.metrics.scalar(f"{self.STAGE}_val/{self.LOSS}", val, self.state.step)
+        return val
 
     def save_checkpoint_fast(self, epoch: int, val_loss) -> bool:
         """Best checkpoints light (bf16 sampling params only: all that the
@@ -225,14 +237,6 @@ class FastPath:
                            extra_meta=self._meta(epoch), periodic=True)
         return is_best
 
-    def _final_save(self, epochs: int) -> None:
-        """A final periodic write whatever the cadence: a run cut into chunks
-        must never end without a resume point."""
-        if epochs > self.start_epoch:
-            self.ckpt.save(self.state, self.state.step, None,
-                           extra_meta=self._meta(epochs - 1), periodic=True)
-        self.metrics.flush()
-
     def _train_fast(self) -> Path:
         """``train()`` on the fast path: validation every ``val_every``
         epochs, a light best on the ``best_every`` cadence, sample grids
@@ -243,7 +247,7 @@ class FastPath:
         self.log.info("%s stage (fast path): %d epochs x %d steps, batch %d on %s", self.STAGE,
                       epochs, self._fast_len, self.cfg.data.batch_size, self.device)
         for epoch in range(self.start_epoch, epochs):
-            self._before_fast_epoch(epoch)
+            self._before_epoch(epoch)
             t0 = time.time()
             stats = self.train_epoch_fast(epoch)
             val_loss = None
@@ -260,5 +264,6 @@ class FastPath:
                           "-" if val_loss is None else f"{val_loss:.4f}",
                           self.skipped_batches())
         self._final_save(epochs)
+        self.metrics.flush()
         self.ckpt.wait()     # the files this run reports are on disk
         return self.ckpt.best_path

@@ -52,6 +52,7 @@ from psg_tpu_torch.serve.generator import resolve_device
 from psg_tpu_torch.train.common import get_tokenizer
 from psg_tpu_torch.train.optim import _warmup_cosine, build_optimizer
 from psg_tpu_torch.train.state import TrainState
+from psg_tpu_torch.train.trainer import tree_grads
 
 _SEED_OFFSET = 10       # parameters and the train state's generator: cfg.seed + 10
 _VAL_SEED_OFFSET = 13   # the validation masks' generator: cfg.seed + 13
@@ -200,10 +201,7 @@ class MLMPretrainer:
                torch.randint(0, ids_all.shape[0], (self.batch,), generator=st.rng,
                              device=self.device))
         loss = self._loss(st.params, ids_all[idx], attn_all[idx], st.rng, draws)
-        leaves = tree.leaves(st.params)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        it = iter(g if g is not None else torch.zeros_like(p) for g, p in zip(grads, leaves))
-        return loss.detach(), tree.map(lambda _: next(it), st.params)
+        return loss.detach(), tree_grads(loss, st.params, st.params)
 
     def _step(self, draws=None):
         loss, grads = self._grads(draws)

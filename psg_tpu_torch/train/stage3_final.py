@@ -65,27 +65,17 @@ Entry points run on the card unless the caller passes ``device="cpu"``.
 from __future__ import annotations
 
 import os
-import time
 from pathlib import Path
 from typing import Dict, Optional
 
-import numpy as np
 import torch
 
 from psg_tpu_torch.core import tree
-from psg_tpu_torch.core.checkpoint import (
-    load_metadata,
-    load_params,
-    read_checkpoint,
-)
-from psg_tpu_torch.core.config import Config, configure_torch
-from psg_tpu_torch.core.metrics import Throughput
-from psg_tpu_torch.data.dataset import PokemonDataset
-from psg_tpu_torch.data.loader import make_loaders
+from psg_tpu_torch.core.checkpoint import load_params, read_checkpoint
+from psg_tpu_torch.core.config import Config
 from psg_tpu_torch.diffusion.sampling import ddim_sample, ddpm_sample, dpmpp_2m_sample
 from psg_tpu_torch.diffusion.schedule import make_schedule
 from psg_tpu_torch.models import bridge
-from psg_tpu_torch.models.bert import bert_config_for
 from psg_tpu_torch.models.clip import ClipConfig, clip_alignment_loss, clip_init
 from psg_tpu_torch.models.losses import l1_loss, mse_loss
 from psg_tpu_torch.models.text_encoder import text_encoder_apply, text_encoder_init
@@ -95,33 +85,26 @@ from psg_tpu_torch.models.unet import (
     unet_init,
     unet_spec_from_config,
 )
-from psg_tpu_torch.models.vae import (
-    latent_size_for,
-    reparameterize,
-    vae_decode,
-    vae_encoder_apply,
-    vae_init,
-)
+from psg_tpu_torch.models.vae import reparameterize, vae_decode, vae_encoder_apply, vae_init
 from psg_tpu_torch.nn.layers import prepare_weights
-from psg_tpu_torch.serve.generator import resolve_device
 from psg_tpu_torch.text.bpe import ClipBPETokenizer
-from psg_tpu_torch.train.common import MeshRun, device_batch, get_tokenizer, stage_io
 from psg_tpu_torch.train.fastpath import FastPath
-from psg_tpu_torch.train.optim import build_optimizer, make_lr_schedule, skipped_steps
-from psg_tpu_torch.train.state import TrainState
-from psg_tpu_torch.utils.images import save_image_grid
+from psg_tpu_torch.train.optim import build_optimizer, make_lr_schedule
+from psg_tpu_torch.train.trainer import StageTrainer
 
 CLIP_SEED = 4321            # the random CLIP, as the JAX package's PRNGKey(4321)
-_STATE_SEED_OFFSET = 2      # the train state's generator: cfg.seed + 2
-_VAL_SEED_OFFSET = 3        # the validation draws' generator: cfg.seed + 3
-_SAMPLE_SEED_OFFSET = 30_000   # sample grid of epoch e: cfg.seed + 30000 + e
 
 
-class FinalTrainer(FastPath):
+class FinalTrainer(FastPath, StageTrainer):
     """Stage-3 trainer."""
 
-    STAGE = "final"
-    EPOCHS = "final_epochs"
+    STAGE, EPOCHS, LOSS = "final", "final_epochs", "total_loss"
+    LOG_LINE = "loss {total_loss:.4f} clip {clip_loss:.4f}"
+    STATE_SEED_OFFSET = 2          # the train state's generator: cfg.seed + 2
+    VAL_SEED_OFFSET = 3            # the validation draws' generator: cfg.seed + 3
+    SAMPLE_SEED_OFFSET = 30_000    # sample grid of epoch e: cfg.seed + 30000 + e
+    RESTORE_BEST = False
+    GRAD_NORM_MAX = False
 
     def __init__(self, cfg: Config, vae_checkpoint_path, diffusion_checkpoint_path,
                  experiment_name: str = "pokemon", *, device=None, mesh=None):
@@ -133,28 +116,8 @@ class FinalTrainer(FastPath):
         with a 'model' axis the wide kernels of all three parts and their
         moments are sharded by ``unet_tp_rules``; CLIP whole on every
         rank)."""
-        self.device = resolve_device(device)
-        self.mesh, self.mesh_run = mesh, None
-        if self.device.type == "cuda":
-            configure_torch(cfg)
-        self.cfg = cfg
-        self.stage_dir = Path(cfg.experiment_dir) / f"{experiment_name}_final"
-        self.ckpt, self.log, self.metrics = stage_io(self.stage_dir, self.STAGE, mesh,
-                                                     self.device)
-
-        ds = PokemonDataset(cfg.data.csv_path, cfg.data.image_dir,
-                            image_size=cfg.data.image_size,
-                            background_color=cfg.data.background_color,
-                            text_len=cfg.data.text_len)
-        self.tokenizer = get_tokenizer(cfg, self.stage_dir, corpus=ds.full_descriptions,
-                                       mesh=mesh)
-        self.train_loader, self.val_loader, self.test_loader, self.ds = make_loaders(
-            cfg, self.tokenizer, ds=ds)
-
+        self._setup(cfg, experiment_name, device, mesh)
         m = cfg.model
-        self.bert_cfg = bert_config_for(m.bert_model, self.tokenizer.vocab_size)
-        self.compute_dtype = torch.bfloat16 if m.compute_dtype == "bfloat16" else None
-        self.latent_size = latent_size_for(cfg.data.image_size)
         self.spec = unet_spec_from_config(cfg, self.latent_size)
         self.schedule = make_schedule(m.num_timesteps, m.beta_start, m.beta_end,
                                       m.beta_schedule)
@@ -195,13 +158,7 @@ class FinalTrainer(FastPath):
         self.tx_phase2 = build_optimizer(o, groups, self._labels(params, joint=True))
         self.phase = "text_encoder"
         self.tx = self.tx_phase1
-        if mesh is not None:
-            self.mesh_run = MeshRun(mesh, params, tp_min_channels=int(
-                (cfg.extra or {}).get("tp_min_channels", 640)))
-        self.state = self._fresh_state(params, step=0, rng=torch.Generator(
-            device=self.device).manual_seed(cfg.seed + _STATE_SEED_OFFSET))
-        self.start_epoch = 0
-        self.best_val = float("inf")
+        self._start(params)
 
     # -- setup ---------------------------------------------------------------
 
@@ -218,22 +175,14 @@ class FinalTrainer(FastPath):
                     else like(v, "unet" if joint else "frozen"))
                 for k, v in params.items()}
 
-    def _fresh_state(self, params, *, step: int, rng: torch.Generator) -> TrainState:
-        """A state from whole params (cut to this rank's shards on a mesh
-        with a 'model' axis)."""
-        params = tree.map(lambda t: t.detach().requires_grad_(True), params)
-        state = TrainState(step, params, self.tx.init(params), rng)
-        return self.mesh_run.place(state) if self.mesh_run is not None else state
-
     def _load_params(self, vae_path, diff_path) -> Dict:
         """{vae, text, unet}: the stage-1 and stage-2 checkpoints where given
         (each must exist and fit), else drawn from the seed."""
         m = self.cfg.model
-        gen = torch.Generator(device=self.device).manual_seed(self.cfg.seed)
+        gen = self._generator()
         vt = {"vae": vae_init(gen, m.latent_dim, m.text_embedding_dim, m.vae_width_scale),
               "text": text_encoder_init(gen, self.bert_cfg, m.text_embedding_dim)}
-        unet = unet_init(torch.Generator(device=self.device).manual_seed(self.cfg.seed + 1),
-                         self.spec)
+        unet = unet_init(self._generator(1), self.spec)
         for path, what in ((vae_path, "VAE"), (diff_path, "diffusion")):
             if path is not None and not Path(path).exists():
                 raise FileNotFoundError(f"{what} checkpoint not found: {path}")
@@ -276,12 +225,6 @@ class FinalTrainer(FastPath):
                                    str(path)), "pretrained"
         return prepare_weights(clip, self.compute_dtype), src
 
-    def _batch(self, batch):
-        """A loader batch on the device: this rank's rows on a mesh."""
-        if self.mesh_run is not None:
-            batch = self.mesh_run.local(batch)
-        return device_batch(batch, self.device)
-
     # -- the loss ------------------------------------------------------------
 
     def _roundtrip(self, params, batch, generator, draws=None):
@@ -293,81 +236,26 @@ class FinalTrainer(FastPath):
         with torch.no_grad():
             mu, logvar = vae_encoder_apply(params["vae"]["encoder"], batch["image"],
                                            dtype=self.compute_dtype)
-            noise = None
-            if draws is not None and "rep_noise" in draws:
-                noise = torch.as_tensor(draws["rep_noise"]).to(self.device)
-            latent = reparameterize(generator, mu, logvar, noise=noise)
+            latent = reparameterize(generator, mu, logvar,
+                                    noise=self._draw(draws, "rep_noise", lambda: None))
         return vae_decode(params["vae"], latent.to(text_emb.dtype), text_emb,
                           text_bias=text_bias_from_mask(batch["text_mask"]),
                           image_size=self.cfg.data.image_size, dtype=self.compute_dtype)
 
-    def _forward_loss(self, params, batch, generator, draws=None, sample_weights=None):
+    def _loss(self, params, batch, generator, draws, *, weights=None, train: bool = True):
         """(total loss, parts)."""
         recon = self._roundtrip(params, batch, generator, draws)
-        l1 = l1_loss(recon, batch["image"], sample_weights=sample_weights)
-        mse = mse_loss(recon, batch["image"], sample_weights=sample_weights)
+        l1 = l1_loss(recon, batch["image"], sample_weights=weights)
+        mse = mse_loss(recon, batch["image"], sample_weights=weights)
         # BPE ids for a pretrained CLIP tower; WordPiece ids otherwise
         clip = clip_alignment_loss(self.clip_params, recon,
                                    batch.get("clip_ids", batch["text_ids"]),
                                    batch.get("clip_mask", batch["text_mask"]),
                                    self.clip_cfg, dtype=self.compute_dtype,
-                                   sample_weights=sample_weights)
+                                   sample_weights=weights)
         total = l1 + 0.1 * mse + self.cfg.training.clip_weight * clip
         parts = {"total_loss": total, "l1_loss": l1, "mse_loss": mse, "clip_loss": clip}
-        if self.mesh_run is not None:   # averaged over 'data': the global batch's loss
-            scale = self.mesh_run.loss_scale(sample_weights, batch["image"].shape[0])
-            total, parts = total * scale, {k: v * scale for k, v in parts.items()}
-        return total, parts
-
-    # -- steps ---------------------------------------------------------------
-
-    def _grads(self, batch, draws=None):
-        """(loss parts, gradient tree) of one training batch: every leaf
-        gets a gradient, zero where the loss does not reach it (the
-        encoder, the UNet, BERT's pooler), as ``jax.grad`` gives."""
-        st = self.state
-        mr = self.mesh_run
-        gen, params = st.rng, st.params
-        if mr is not None:
-            gen, draws, params = mr.step_inputs(st, batch["image"].shape[0], draws)
-        loss, parts = self._forward_loss(params, batch, gen, draws)
-        paths, leaves = zip(*tree.items(params))
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [g if g is not None else torch.zeros_like(p) for g, p in zip(grads, leaves)]
-        parts = {k: v.detach() for k, v in parts.items()}
-        if mr is not None:
-            grads, parts = mr.reduce_grads(paths, grads), mr.mean_parts(parts)
-        it = iter(grads)
-        return parts, tree.map(lambda _: next(it), st.params)
-
-    def _apply_update(self, parts, grads) -> Dict:
-        st = self.state
-        stats = self.tx.update(st.params, grads, st.opt_state, layout=st.layout)
-        st.step += 1
-        return {**parts, "grad_norm": stats["grad_norm"]}
-
-    def _step(self, batch, draws=None) -> Dict:
-        parts, grads = self._grads(batch, draws)
-        return self._apply_update(parts, grads)
-
-    def _val_generator(self) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(
-            self.cfg.seed + _VAL_SEED_OFFSET)
-
-    @torch.no_grad()
-    def _eval(self, batch, valid: int, draws=None) -> Dict:
-        """Loss parts over the first ``valid`` samples of ``batch``: the
-        loader pads the last eval batch by wraparound, and the padding is
-        weighted 0 in every term.  On a mesh ``batch`` is this rank's rows
-        and ``valid`` counts the global batch's."""
-        b = batch["image"].shape[0]
-        gen, first, params = self._val_generator(), 0, self.state.params
-        if self.mesh_run is not None:
-            gen, first, params = self.mesh_run.eval_inputs(gen, b, params)
-            draws = self.mesh_run.local(draws)
-        w = (torch.arange(first, first + b, device=self.device) < valid).float()
-        _, parts = self._forward_loss(params, batch, gen, draws, sample_weights=w)
-        return self.mesh_run.mean_parts(parts) if self.mesh_run is not None else parts
+        return self._mesh_scaled(weights, batch["image"].shape[0], total, parts)
 
     @torch.no_grad()
     def _sample(self, params, generator, text_ids, text_mask, *, num: int, steps: int = 50,
@@ -413,150 +301,48 @@ class FinalTrainer(FastPath):
         self.state.opt_state = None      # the old moments go before the new ones come
         self.state.opt_state = self.tx.init(self.state.params)
 
-    # -- the device-resident fast path (train/fastpath.py) -----------------------
-
-    def train_epoch_fast(self, epoch: int, draws=None) -> Dict[str, float]:
-        ys = self._fast_epoch(self._step, draws)
-        stats = {k: float(np.mean(v)) for k, v in ys.items()}
-        self.metrics.scalars(stats, self.state.step, prefix="final_train/")
-        return stats
-
-    def validate_fast(self, epoch: int, draws=None) -> float:
-        val = self._fast_validate(lambda batch, gen, d, w: self._forward_loss(
-            self.state.params, batch, gen, d, sample_weights=w)[1]["total_loss"], draws)
-        self.metrics.scalar("final_val/total_loss", val, self.state.step)
-        return val
-
-    def _meta(self, epoch: int) -> Dict:
-        # the JAX package's fast path names the phase 'phase', its classic path
-        # 'training_phase' (which resuming reads): both are written
-        return {"epoch": epoch, "phase": self.phase, "training_phase": self.phase,
-                "config": self.cfg.to_dict()}
-
-    def _before_fast_epoch(self, epoch: int) -> None:
-        tr = self.cfg.training
-        phase1 = tr.phase1_epochs if tr.phase1_epochs is not None else tr.final_epochs // 2
-        if epoch >= phase1 and self.phase == "text_encoder":
+    def _before_epoch(self, epoch: int) -> None:
+        if epoch >= self._phase1_epochs() and self.phase == "text_encoder":
             self.switch_to_joint_training()
+
+    def _phase1_epochs(self) -> int:
+        tr = self.cfg.training
+        return tr.phase1_epochs if tr.phase1_epochs is not None else tr.final_epochs // 2
 
     # -- loops ---------------------------------------------------------------
 
-    def train_epoch(self, epoch: int) -> Dict[str, float]:
-        sums: Dict[str, object] = {}
-        count = 0
-        thr = Throughput()
-        for batch in self.train_loader:
-            parts = self._step(self._batch(batch))
-            count += 1
-            thr.step()
-            if count % self.cfg.training.log_every == 0:
-                vals = {k: float(v) for k, v in parts.items()}
-                self.metrics.scalars(vals, self.state.step, prefix="final_train/")
-                self.log.info("epoch %d step %d loss %.4f clip %.4f | %.0f b/h", epoch,
-                              self.state.step, vals["total_loss"], vals["clip_loss"],
-                              thr.batches_per_hour())
-            for k, v in parts.items():
-                # losses stay on the device: float() here would wait for them
-                sums[k] = sums.get(k, 0.0) + v
-        return {k: float(v) / max(count, 1) for k, v in sums.items()}
-
-    def validate(self, epoch: int) -> float:
-        total, n = 0.0, 0
-        for batch in self.val_loader:
-            valid = int(batch["valid"])
-            total += float(self._eval(self._batch(batch), valid)["total_loss"]) * valid
-            n += valid
-        val = total / max(n, 1)
-        self.metrics.scalar("final_val/total_loss", val, self.state.step)
-        return val
-
     def generate_samples(self, epoch: int, num: int = 4, steps: Optional[int] = None) -> Path:
-        descs = self.ds.full_descriptions[:num]
-        ids, mask = self.tokenizer.encode_batch(descs, self.cfg.data.text_len)
         extra = self.cfg.extra or {}
         if steps is None:
             steps = int(extra.get("sample_steps", 100))
-        gen = torch.Generator(device=self.device).manual_seed(
-            self.cfg.seed + _SAMPLE_SEED_OFFSET + epoch)
-        ids, mask = (torch.from_numpy(a).long().to(self.device) for a in (ids, mask))
-        mr = self.mesh_run
-        if mr is not None:   # this rank's rows of the grid, then all of them
-            gen, (ids, mask) = mr.split_rows(gen, len(descs), ids, mask)
-        imgs = self._sample(MeshRun.whole(mr, self.state.params), gen, ids, mask,
-                            num=ids.shape[0], steps=steps,
-                            sampler=str(extra.get("sample_sampler", "ddim")))
-        path = self.stage_dir / "samples" / f"final_epoch_{epoch:04d}.png"
-        if mr is None:
-            save_image_grid(imgs.float().cpu().numpy(), path, captions=descs)
-        else:
-            imgs = mr.gather_rows(imgs, len(descs))
-            mr.write(lambda: save_image_grid(imgs.float().cpu().numpy(), path,
-                                             captions=descs))
-        return path
+        return self._save_grid(epoch, self.ds.full_descriptions[:num],
+                               f"final_epoch_{epoch:04d}.png",
+                               lambda params, gen, ids, mask: self._sample(
+                                   params, gen, ids, mask, num=ids.shape[0], steps=steps,
+                                   sampler=str(extra.get("sample_sampler", "ddim"))))
 
-    def skipped_batches(self) -> int:
-        """Non-finite rejections plus norm rejections (every group) since the
-        optimizer state began (the switch starts a new one)."""
-        return skipped_steps(self.state.opt_state)
+    def _meta(self, epoch: int, classic: bool = False) -> Dict:
+        # the JAX package's fast path names the phase 'phase', its classic path
+        # 'training_phase' (which resuming reads): the fast path writes both
+        phase = {} if classic else {"phase": self.phase}
+        return {"epoch": epoch, **phase, "training_phase": self.phase,
+                "config": self.cfg.to_dict()}
 
-    def save_checkpoint(self, epoch: int, val_loss: float) -> bool:
-        tr = self.cfg.training
-        allow_best = ((epoch + 1) % max(tr.best_every, 1) == 0
-                      or epoch + 1 == tr.final_epochs)
-        return self.ckpt.save(self.state, self.state.step, val_loss if allow_best else None,
-                              extra_meta={"epoch": epoch, "training_phase": self.phase,
-                                          "config": self.cfg.to_dict()},
-                              periodic=(epoch + 1) % tr.save_every == 0)
+    def _banner(self, epochs: int) -> str:
+        return (f"stage 3: {epochs} epochs (phase1 {self._phase1_epochs()}), "
+                f"{len(self.train_loader)} batches/epoch on {self.device}")
 
-    def load_checkpoint(self, path: Optional[str] = None):
-        """Resume from a stage-3 checkpoint.  A joint-phase one switches
-        first and then restores its three-group optimizer state with the
-        parameters; from a checkpoint without a port optimizer state (a JAX
-        one), the parameters and step with a fresh one."""
-        self.ckpt.wait()     # every rank: no write of this run is in flight
-        path = Path(path) if path is not None else self.ckpt.best_path
-        if not path.exists():
-            raise FileNotFoundError(f"no checkpoint at {path}")
-        meta = load_metadata(path)
+    def _epoch_name(self, epoch: int) -> str:
+        return f"{epoch} ({self.phase})"
+
+    def _before_restore(self, meta: Dict) -> None:
+        """A joint-phase checkpoint switches first, then restores its
+        three-group optimizer state with the parameters."""
         if meta.get("training_phase") == "joint" and self.phase != "joint":
             self.switch_to_joint_training()
-        try:
-            self.state = self.state.from_checkpoint(read_checkpoint(path))
-        except (KeyError, ValueError) as e:
-            self.log.warning("full restore failed (%s): params-only restore", e)
-            params = load_params(path, MeshRun.whole(self.mesh_run, self.state.params))
-            self.state = self._fresh_state(params, step=int(meta.get("step", 0)),
-                                           rng=self.state.rng)
         self.ckpt.best_metric = min(self.ckpt.best_metric,
                                     float(meta.get("metric", float("inf"))))
-        self.start_epoch = int(meta.get("epoch", -1)) + 1
-        self.best_val = float(meta.get("metric", float("inf")))
+
+    def _after_restore(self) -> None:
         self.log.info("restored %s checkpoint at epoch %d (val %.4f)", self.phase,
                       self.start_epoch, self.best_val)
-
-    def train(self) -> Path:
-        if self.cfg.training.fast_path and self.mesh is None:
-            return self._train_fast()
-        t = self.cfg.training
-        epochs = t.final_epochs
-        phase1 = t.phase1_epochs if t.phase1_epochs is not None else epochs // 2
-        self.log.info("stage 3: %d epochs (phase1 %d), %d batches/epoch on %s", epochs,
-                      phase1, len(self.train_loader), self.device)
-        for epoch in range(self.start_epoch, epochs):
-            if epoch >= phase1 and self.phase == "text_encoder":
-                self.switch_to_joint_training()
-            t0 = time.time()
-            self.train_loader.set_epoch(epoch)
-            stats = self.train_epoch(epoch)
-            val_loss = self.validate(epoch)
-            if val_loss < self.best_val:
-                self.best_val = val_loss
-            self.save_checkpoint(epoch, val_loss)
-            if (epoch + 1) % t.sample_every == 0:
-                self.generate_samples(epoch)
-            self.log.info("epoch %d (%s) done in %.1fs: train %.4f val %.4f skipped %d",
-                          epoch, self.phase, time.time() - t0, stats.get("total_loss", 0.0),
-                          val_loss, self.skipped_batches())
-        self.metrics.flush()
-        self.ckpt.wait()     # the files this run reports are on disk
-        return self.ckpt.best_path

@@ -25,9 +25,9 @@ the interval holds exactly its kernels and the gaps between them), summed per
 step, with what that backward is: FlashSDPA's launches the backward kernel
 (csrc/flash_attention_bwd.cu), GroupNormSiLU's and SpatialXattn's recompute
 their plain versions; and the program's ``psg.*`` spans in the profiled
-run (``spans``, as ``scripts/torch_profile_serve.py`` prints them: stage
-2's ``psg.train.step``, ``grads``, ``forward``, ``backward``,
-``optimizer``, ``ema``, the fast path's ``fast_batch``, the optimizer's
+run (``spans``, as ``scripts/torch_profile_serve.py`` prints them: every
+stage trainer's ``psg.train.step``, ``grads``, ``forward``, ``backward``,
+``optimizer`` and stage 2's ``ema``, the fast path's ``fast_batch``, the optimizer's
 ``psg.optim.stats`` and ``adam``, and the UNet's).  Then the step's
 samples/s and peak device memory.
 
@@ -290,7 +290,7 @@ def profile_sd(cfg, args):
         args.steps)
 
     def loss(_):
-        return tr._noise_loss(p, batch, tr.state.rng)
+        return tr._loss(p, batch, tr.state.rng, None)[0]
 
     measure("backward", lambda lo: torch.autograd.grad(lo, leaves, allow_unused=True),
             args.steps, setup=lambda: loss(None))
@@ -339,7 +339,7 @@ def profile_stage1(cfg, args):
                                (batch["image"] + 1.0) / 2.0, dtype=dt)
 
     def forward(_):
-        return tr._forward_loss(p, batch, klw, "train", st.rng)[0]
+        return tr._loss(p, batch, st.rng, None, klw)[0]
 
     step = measure(f"train step (batch {bs})", lambda _: tr._step(batch, klw), args.steps,
                    trace=args.trace)
@@ -396,7 +396,7 @@ def profile_stage3(cfg, args):
                                    batch["text_mask"], tr.clip_cfg, dtype=dt)
 
     def forward(_):
-        return tr._forward_loss(p, batch, st.rng)[0]
+        return tr._loss(p, batch, st.rng, None)[0]
 
     step = measure(f"train step, text-encoder phase (batch {bs})", lambda _: tr._step(batch),
                    args.steps, trace=args.trace)

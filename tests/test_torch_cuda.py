@@ -572,10 +572,10 @@ def test_stage1_gradient_reaches_every_leaf(card, tmp_path):
     noise = torch.from_numpy(np.random.RandomState(0).randn(
         2, cpu.latent_size, cpu.latent_size, 8).astype(np.float32))
     ops.reset_launch_counts()
-    _, got = gpu._grads(gpu._batch(batch), 0.005, {"rep_noise": noise})
+    _, got = gpu._grads(gpu._batch(batch), 0.005, draws={"rep_noise": noise})
     counts = ops.launch_counts()
     assert min(counts.values()) > 0, counts
-    _, ref = cpu._grads(cpu._batch(batch), 0.005, {"rep_noise": noise})
+    _, ref = cpu._grads(cpu._batch(batch), 0.005, draws={"rep_noise": noise})
     for (path, g), r in zip(tree.items(got), tree.leaves(ref)):
         g = g.cpu()
         assert torch.isfinite(g).all(), path

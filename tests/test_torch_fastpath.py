@@ -12,6 +12,7 @@ the image's edge (nearer, the in-bounds test may flip between the packages'
 roundings, and the pixel takes the fill colour in one and not the other),
 and mean abs error <= 1e-5 over all pixels."""
 
+import collections
 import contextlib
 from pathlib import Path
 
@@ -36,6 +37,7 @@ from psg_tpu_torch.models.bert import BertConfig
 from psg_tpu_torch.models.text_encoder import text_encoder_apply
 from psg_tpu_torch.text.tokenizer import WordPieceTokenizer
 from psg_tpu_torch.train import fastpath
+from psg_tpu_torch.utils import profiling
 
 # one intra-op thread: the suite runs several test processes at once, and
 # a pool of one thread per core in each of them oversubscribes the CPU
@@ -231,3 +233,47 @@ def assert_determined_close(mine, ref, grads, name, atol=1e-6, grad_rtols=None):
         err = (p.detach().float() - ref[path])[det].abs()
         assert err.numel() == 0 or float(err.max()) <= atol, \
             f"{name} {path}: {float(err.max()):.3g} apart where |g| is determined"
+
+
+# the psg.train.* ranges of a step and the range each opens in
+STEP_SPANS = {"psg.train.step": None, "psg.train.grads": "psg.train.step",
+              "psg.train.forward": "psg.train.grads", "psg.train.backward": "psg.train.grads",
+              "psg.train.optimizer": "psg.train.step"}
+
+
+def step_seam(trainer, step):
+    """``step()``, one ``trainer._step``, under a CPU ``torch.profiler``
+    with ``_grads`` and ``_apply_update`` wrapped on the instance, as the
+    benchmark wraps them: each runs once, the step reads the host once, and
+    the ``psg.train.*`` ranges nest as ``STEP_SPANS`` says.  Returns the
+    step's gradient tree; the trainer's own methods are back afterwards."""
+    calls, grads = collections.Counter(), []
+
+    def counted(name):
+        orig = getattr(trainer, name)
+
+        def call(*args, **kwargs):
+            calls[name] += 1
+            out = orig(*args, **kwargs)
+            if name == "_grads":
+                grads.append(out[1])
+            return out
+        return call
+
+    trainer._grads, trainer._apply_update = counted("_grads"), counted("_apply_update")
+    reads = profiling.counts().get(profiling.HOST_READS, 0)
+    try:
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            step()
+    finally:
+        del trainer._grads, trainer._apply_update
+    assert calls == {"_grads": 1, "_apply_update": 1}
+    assert profiling.counts()[profiling.HOST_READS] == reads + 1
+    ranges = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+              if e.name.startswith("psg.train.")]
+    assert sorted(name for name, _, _ in ranges) == sorted(STEP_SPANS)
+    for name, start, end in ranges:
+        around = [r for r in ranges if r[0] != name and r[1] <= start and end <= r[2]]
+        inner = max(around, key=lambda r: r[1])[0] if around else None
+        assert inner == STEP_SPANS[name], f"{name} opens in {inner}"
+    return grads[0]

@@ -148,7 +148,7 @@ def _single_refs(root: Path) -> dict:
     t1 = VAETrainer(W.tiny_config(root / "single_s1", W.corpus_of(root)), "m", device="cpu")
     refs["stage1"] = W.step_parts(t1, W.global_batch(t1.tokenizer), lambda b: t1._grads(b, 0.01),
                                   lambda p, g: t1._apply_update(p, g, 0.01),
-                                  lambda b: t1._eval(b, 0.01, 3)["total_loss"])
+                                  lambda b: t1._eval(b, 3, 0.01)["total_loss"])
     t3 = FinalTrainer(W.tiny_config(root / "single_s3", W.corpus_of(root)), None, None, "m",
                       device="cpu")
     t3.switch_to_joint_training()

@@ -51,7 +51,7 @@ from psg_tpu_torch.models import bridge
 from psg_tpu_torch.nn.layers import prepare_weights
 from psg_tpu_torch.train import cli
 from psg_tpu_torch.train.stage1_vae import VAETrainer
-from test_torch_fastpath import assert_determined_close, recorded_grads
+from test_torch_fastpath import assert_determined_close, recorded_grads, step_seam
 
 # one intra-op thread: the suite runs several test processes at once, and
 # a pool of one thread per core in each of them oversubscribes the CPU
@@ -167,7 +167,7 @@ def test_one_step_loss_gradients_and_params_match(jax_trainer, port_trainer):
     ref_grads = bridge.fit(pt.state.params, bridge.from_jax(_np(jgrads)), "grads")
 
     before = tree.map(lambda t: t.detach().clone(), pt.state.params)
-    parts, grads = pt._grads(pb, klw, draws)
+    parts, grads = pt._grads(pb, klw, draws=draws)
     for k in ("total_loss", "reconstruction_loss", "perceptual_loss", "kl_loss"):
         np.testing.assert_allclose(float(parts[k]), float(jparts[k]), rtol=1e-5, err_msg=k)
     _assert_grads_close(jgrads, grads)
@@ -294,15 +294,15 @@ def test_val_loss_ignores_padded_tail(port_trainer):
     images = np.random.RandomState(1).uniform(-1, 1, (2, 64, 64, 3)).astype(np.float32)
     ids, mask = pt.tokenizer.encode_batch(CAPTIONS, 32)
     batch = {"image": images, "text_ids": ids, "text_mask": mask}
-    base = pt._eval(pt._batch(batch), 0.01, 1)
+    base = pt._eval(pt._batch(batch), 1, 0.01)
     tail = dict(batch, image=images.copy())
     tail["image"][1:] = 0.77
-    got = pt._eval(pt._batch(tail), 0.01, 1)
+    got = pt._eval(pt._batch(tail), 1, 0.01)
     for k, v in base.items():
         assert float(got[k]) == pytest.approx(float(v), rel=1e-5), k
     head = dict(batch, image=images.copy())
     head["image"][0] = 0.77
-    assert float(pt._eval(pt._batch(head), 0.01, 1)["total_loss"]) != pytest.approx(
+    assert float(pt._eval(pt._batch(head), 1, 0.01)["total_loss"]) != pytest.approx(
         float(base["total_loss"]), rel=1e-5)
 
 
@@ -386,7 +386,7 @@ def test_fast_epoch_and_validation_match(jax_trainer, port_trainer):
                                         jnp.float32(jt.kl_weight(1)))
         with recorded_grads(pt) as seen:
             klw = pt.kl_weight(1)
-            got = pt._fast_epoch(lambda batch, d: pt._step(batch, klw, d), draws)
+            got = pt._fast_epoch(lambda batch, draws: pt._step(batch, klw, draws=draws), draws)
     finally:
         jt.cfg.data.augment = pt.cfg.data.augment = True
     for k in ("total_loss", "reconstruction_loss", "perceptual_loss", "kl_loss",
@@ -485,3 +485,20 @@ def test_cli_stage1_then_stage2_from_its_checkpoint(tmp_path, monkeypatch, capsy
     stage2 = tmp_path / "exp" / "cli_diffusion" / "checkpoints" / "diffusion_best_model.ckpt"
     meta2 = json.loads(stage2.with_suffix(".json").read_text())
     assert meta2["vae_checkpoint"] == str(best) and meta2["step"] == 2
+
+def test_step_seam_spans_and_zero_fill(jax_trainer, port_trainer):
+    """One ``_step`` as the benchmark's harness sees it (``step_seam``): the
+    instance's ``_grads`` and ``_apply_update`` each run once, the step
+    reads the host once, and the ``psg.train.*`` ranges nest as
+    ``StageTrainer`` opens them.  BERT's pooler, which the loss does not
+    reach, gets a zero gradient of its shape (``tree_grads``' fill)."""
+    pt = port_trainer
+    _, pb = _batches(jax_trainer, pt)
+    before = tree.map(lambda t: t.detach().clone(), pt.state.params)
+    rng = pt.state.rng.get_state()
+    grads = step_seam(pt, lambda: pt._step(pb, jax_trainer.kl_weight(1)))
+    pooler = grads["text"]["bert"]["pooler"]["w"]
+    assert pooler.shape == before["text"]["bert"]["pooler"]["w"].shape
+    assert float(pooler.abs().max()) == 0.0
+    pt.state.rng.set_state(rng)
+    pt.state = pt._fresh_state(before, step=0, rng=pt.state.rng)

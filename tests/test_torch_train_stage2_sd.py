@@ -55,7 +55,7 @@ from psg_tpu_torch.train.legacy import LegacyDiffusionTrainer
 from psg_tpu_torch.train.optim import make_lr_schedule
 from psg_tpu_torch.train.stage2_sd import SDDiffusionTrainer, train_mode_for
 from test_torch_convert import _state_dict
-from test_torch_fastpath import assert_determined_close, recorded_grads
+from test_torch_fastpath import assert_determined_close, recorded_grads, step_seam
 from test_torch_sampling import _jax_step_draws
 
 # one intra-op thread: the suite runs several test processes at once, and
@@ -196,7 +196,7 @@ def test_step_matches_in_each_train_mode(tmp_path, corpus, jax_trainer, jax_step
 
     _, pb = _batches(jt, pt)
     with recorded_grads(pt) as seen:
-        stats = pt._step(pb, _draws(jt, key))
+        stats = pt._step(pb, draws=_draws(jt, key))
     np.testing.assert_allclose(float(stats["loss"]), jloss, rtol=1e-5)
     np.testing.assert_allclose(stats["grad_norm"], jnorm, rtol=1e-5)
     _assert_grads_close(jgrads, seen[0])
@@ -357,3 +357,20 @@ def test_legacy_trainer_pins_the_jax_presets_choices(tmp_path, corpus, monkeypat
     lr = t.tx.groups["unet"]["lr_schedule"]
     assert [lr(k) for k in range(steps + 1)] == [want(k) for k in range(steps + 1)]
     assert not os.environ.get("PSG_TPU_SD_UNET")
+
+def test_step_seam_spans_and_zero_fill(jax_trainer, port_trainer):
+    """One ``_step`` as the benchmark's harness sees it (``step_seam``): the
+    instance's ``_grads`` and ``_apply_update`` each run once, the step
+    reads the host once, and the ``psg.train.*`` ranges nest as
+    ``StageTrainer`` opens them.  BERT's pooler, which the loss does not
+    reach, gets a zero gradient of its shape (``tree_grads``' fill)."""
+    pt = port_trainer
+    _, pb = _batches(jax_trainer, pt)
+    before = tree.map(lambda t: t.detach().clone(), pt.state.params)
+    rng = pt.state.rng.get_state()
+    grads = step_seam(pt, lambda: pt._step(pb))
+    pooler = grads["text"]["bert"]["pooler"]["w"]
+    assert pooler.shape == before["text"]["bert"]["pooler"]["w"].shape
+    assert float(pooler.abs().max()) == 0.0
+    pt.state.rng.set_state(rng)
+    pt.state = pt._fresh_state(before, step=0, rng=pt.state.rng)

@@ -40,7 +40,7 @@ from psg_tpu_torch.models import bridge
 from psg_tpu_torch.nn.layers import prepare_weights
 from psg_tpu_torch.train import stage3_final
 from psg_tpu_torch.train.stage3_final import FinalTrainer
-from test_torch_fastpath import assert_determined_close, recorded_grads
+from test_torch_fastpath import assert_determined_close, recorded_grads, step_seam
 
 # one intra-op thread: the suite runs several test processes at once, and
 # a pool of one thread per core in each of them oversubscribes the CPU
@@ -184,7 +184,7 @@ def test_phase1_step_loss_gradients_and_params_match(jax_trainer, port_trainer, 
     jt, pt = jax_trainer, port_trainer
     _, pb = _batches(jt, pt)
     before = tree.map(lambda t: t.detach().clone(), pt.state.params)
-    parts, grads = pt._grads(pb, {"rep_noise": reference["rep_noise"]})
+    parts, grads = pt._grads(pb, draws={"rep_noise": reference["rep_noise"]})
     for k, v in reference["parts"].items():
         np.testing.assert_allclose(float(parts[k]), v, rtol=1e-5, err_msg=k)
     _assert_grads_close(reference["grads"], grads)
@@ -273,15 +273,15 @@ def test_val_loss_matches_and_ignores_padded_tail(jax_trainer, port_trainer):
     ref = jax.jit(jt._eval)(jt.state, jt.clip_params, jb, jnp.int32(1))
     noise = {"rep_noise": torch.from_numpy(np.array(jax.random.normal(
         jax.random.fold_in(jt.state.rng, jnp.int32(-3)), _latent(jt))))}
-    got = pt._eval(pb, 1, noise)
+    got = pt._eval(pb, 1, draws=noise)
     for k, v in ref.items():
         np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-5, err_msg=k)
     tail = dict(pb, image=pb["image"].clone())
     tail["image"][1] = 0.77
-    again = pt._eval(tail, 1, noise)
+    again = pt._eval(tail, 1, draws=noise)
     for k, v in got.items():
         assert float(again[k]) == pytest.approx(float(v), rel=1e-6), k
-    assert float(pt._eval(pb, 2, noise)["total_loss"]) != pytest.approx(
+    assert float(pt._eval(pb, 2, draws=noise)["total_loss"]) != pytest.approx(
         float(got["total_loss"]), rel=1e-5)
 
 
@@ -524,3 +524,20 @@ def test_jax_drops_a_joint_checkpoints_moments(jax_trainer, tmp_path):
     moments = [np.asarray(x) for x in jax.tree_util.tree_leaves(dst.state.opt_state)
                if hasattr(x, "ndim") and x.ndim > 0]
     assert moments and all(float(np.abs(m).max()) == 0.0 for m in moments)
+
+def test_step_seam_spans_and_zero_fill(jax_trainer, port_trainer):
+    """One ``_step`` as the benchmark's harness sees it (``step_seam``): the
+    instance's ``_grads`` and ``_apply_update`` each run once, the step
+    reads the host once, and the ``psg.train.*`` ranges nest as
+    ``StageTrainer`` opens them.  BERT's pooler, which the loss does not
+    reach, gets a zero gradient of its shape (``tree_grads``' fill)."""
+    pt = port_trainer
+    _, pb = _batches(jax_trainer, pt)
+    before = tree.map(lambda t: t.detach().clone(), pt.state.params)
+    rng = pt.state.rng.get_state()
+    grads = step_seam(pt, lambda: pt._step(pb))
+    pooler = grads["text"]["bert"]["pooler"]["w"]
+    assert pooler.shape == before["text"]["bert"]["pooler"]["w"].shape
+    assert float(pooler.abs().max()) == 0.0
+    pt.state.rng.set_state(rng)
+    pt.state = pt._fresh_state(before, step=0, rng=pt.state.rng)

@@ -92,7 +92,7 @@ def stage2_step(trainer, batch, draws=None) -> dict:
     """One stage-2 step: loss, gradients, then params and EMA after it; then
     the validation loss over a batch whose last row is padding."""
     b = trainer._batch(batch)
-    loss, grads = trainer._grads(b, draws)
+    loss, grads = trainer._grads(b, draws=draws)
     out = {"loss": float(loss), "grads": snapshot(whole(trainer, grads))}
     stats = trainer._apply_update(loss, grads)
     out.update(grad_norm=float(stats["grad_norm"]),
@@ -248,7 +248,7 @@ def stage1_dp(root, rank):
                    mesh=mesh_of(2, 1))
     return step_parts(t, global_batch(t.tokenizer), lambda b: t._grads(b, 0.01),
                       lambda p, g: t._apply_update(p, g, 0.01),
-                      lambda b: t._eval(b, 0.01, 3)["total_loss"])
+                      lambda b: t._eval(b, 3, 0.01)["total_loss"])
 
 
 @check

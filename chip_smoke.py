@@ -1319,16 +1319,60 @@ def phase_train_card_vs_cpu(tmp):
             "first_step_launches": ops_counts}
 
 
-def predicted_train_launches(trainer):
-    """Launches of one training step: forward, a text encode, a VAE encode
-    and a UNet evaluation; backward, the flash kernel's for the UNet's
-    attention calls only (the text encoder and the VAE encoder run under
-    ``no_grad``, stage2_diffusion.py ``_text`` and ``_noise_loss``;
-    GN+SiLU and the spatial block recompute their plain versions)."""
-    unet = predicted_launches(trainer, 1, text_encodes=0, encodes=0, decodes=0)
+def predicted_train_launches(trainer, steps=1, captures=0, text_encodes=1):
+    """Launches of ``steps`` training steps: each step's forward,
+    ``text_encodes`` text encodes, a VAE encode and a UNet evaluation; its
+    backward, the flash kernel's for the UNet's attention calls only (the
+    text encoder and the VAE encoder run under ``no_grad``,
+    stage2_diffusion.py ``_text`` and ``_noise_loss``; GN+SiLU and the
+    spatial block recompute their plain versions).  A step that captures
+    the UNet's training graphs (``captures`` of them, ``UNetTrainGraphKeys``)
+    launches the UNet's kernels, forward and backward, three times: in its
+    eager warm-up, in the captures' calls left out of the graphs, and in the
+    first replays; a replayed step launches them from the host as an eager
+    one does."""
+    unet = predicted_launches(trainer, steps, text_encodes=0, encodes=0, decodes=0,
+                              captures=captures)
     return with_flash_backward(
-        predicted_launches(trainer, 1, text_encodes=1, encodes=1, decodes=0),
-        unet["flash_attention"])
+        predicted_launches(trainer, steps, text_encodes=text_encodes * steps, encodes=steps,
+                           decodes=0, captures=captures), unet["flash_attention"])
+
+
+def unet_train_graph_counts():
+    """The counters of the training UNet's CUDA graphs (``models.unet``)."""
+    from psg_tpu_torch.utils import profiling
+
+    counts = profiling.counts()
+    return {k: counts.get(f"unet_train_graph.{k}", 0) for k in ("capture", "replay", "eager")}
+
+
+class UNetTrainGraphKeys:
+    """What a stage-2 trainer's training graphs do
+    (``models.unet.UNetTrainGraphs``), kept from its steps' batch sizes
+    alone: a step's key is its batch (the text padded to ``text_len``, the
+    trainer's dtypes, dropout from its generator); a key's first step
+    captures, its later ones replay, and a key beyond the first
+    ``_GRAPHS_KEPT`` runs eagerly.  Validation and sampling hand the graphs
+    no call; a step given dropout masks, or beside a process group, runs
+    eagerly."""
+
+    def __init__(self):
+        from psg_tpu_torch.models.unet import _GRAPHS_KEPT
+
+        self.kept, self.keys = _GRAPHS_KEPT, []
+
+    def steps(self, batches):
+        """The counts of steps at the batch sizes ``batches``, in order."""
+        out = {"capture": 0, "replay": 0, "eager": 0}
+        for b in batches:
+            if b in self.keys:
+                out["replay"] += 1
+            elif len(self.keys) < self.kept:
+                self.keys.append(b)
+                out["capture"] += 1
+            else:
+                out["eager"] += 1
+        return out
 
 
 def phase_train_full_width(exp, corpus, vae_checkpoint):
@@ -1379,8 +1423,11 @@ def phase_train_full_width(exp, corpus, vae_checkpoint):
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()          # this path's counted run starts here
     per_step = predicted_train_launches(trainer)
+    want_train_graphs = UNetTrainGraphKeys().steps([cfg.data.batch_size] * FULL_STEPS)
+    train_g0 = unet_train_graph_counts()
     sample_steps = int(cfg.extra["sample_steps"])
-    want = {"train_epoch": {k: FULL_STEPS * v for k, v in per_step.items()},
+    want = {"train_epoch": predicted_train_launches(
+                trainer, FULL_STEPS, captures=want_train_graphs["capture"]),
             "validate": {k: len(trainer.val_loader) * v
                          for k, v in forward_only(per_step).items()},
             "generate_samples": predicted_launches(trainer, sample_steps)}
@@ -1397,6 +1444,10 @@ def phase_train_full_width(exp, corpus, vae_checkpoint):
     stats, epoch_s = part("train_epoch", lambda: trainer.train_epoch(0))
     val, val_s = part("validate", lambda: trainer.validate(0))
     grid, sample_s = part("generate_samples", lambda: trainer.generate_samples(0))
+    train_graphs = {k: v - train_g0[k] for k, v in unet_train_graph_counts().items()}
+    if train_graphs != want_train_graphs:
+        fail(f"train_epoch, validate, generate_samples: UNet training graphs "
+             f"{train_graphs} != predicted {want_train_graphs}")
     peak = torch.cuda.max_memory_allocated()
     t0 = time.perf_counter()
     if not trainer.save_checkpoint_fast(0, val):
@@ -1454,7 +1505,7 @@ def phase_train_full_width(exp, corpus, vae_checkpoint):
             "vae_checkpoint": str(vae_checkpoint), "serve_load_s": load_s,
             "serve_dpm10_s": serve_s, "loaded": loaded,
             "predicted_per_step": per_step, "launches_by_part": got,
-            "launches": launches}
+            "launches": launches, "unet_train_graphs": train_graphs}
 
 
 # ---------------------------------------------------------------------------
@@ -2473,30 +2524,28 @@ def phase_fast_card_vs_cpu(tmp):
     return out
 
 
-def predicted_fast_launches(trainer, steps, val_batches, setup_encodes):
-    """Forward launches of a fast stage: its steps and validation batches
-    (stage 1 and 3 as their classic step; stage 2 without the text encode,
-    which the fast path precomputes in ``setup_encodes`` calls, or with it
-    when caption variants are encoded in the step) and the setup's text
+def predicted_fast_launches(trainer, steps, val_batches, setup_encodes, captures=0):
+    """Launches of a fast stage: its steps and validation batches (stage 1
+    and 3 as their classic step; stage 2 without the text encode, which the
+    fast path precomputes in ``setup_encodes`` calls, or with it when
+    caption variants are encoded in the step, and with ``captures`` of its
+    steps capturing the UNet's training graphs) and the setup's text
     encodes."""
     from psg_tpu_torch.train.stage1_vae import VAETrainer
     from psg_tpu_torch.train.stage3_final import FinalTrainer
 
-    if isinstance(trainer, VAETrainer):
-        per_step = predicted_stage1_launches(trainer)
-    elif isinstance(trainer, FinalTrainer):
-        per_step = predicted_stage3_launches(trainer)
+    if isinstance(trainer, (VAETrainer, FinalTrainer)):
+        per_step = (predicted_stage1_launches(trainer) if isinstance(trainer, VAETrainer)
+                    else predicted_stage3_launches(trainer))
+        trained = {k: steps * v for k, v in per_step.items()}
+        per_val = forward_only(per_step)
     else:   # the caption variants' text encode runs without gradient
-        unet = predicted_launches(trainer, 1, text_encodes=0, encodes=0, decodes=0)
-        per_step = with_flash_backward(
-            predicted_launches(trainer, 1, text_encodes=int(trainer.caption_augment > 0),
-                               encodes=1, decodes=0), unet["flash_attention"])
-    per_val = forward_only(per_step)
-    if not isinstance(trainer, (VAETrainer, FinalTrainer)):
+        trained = predicted_train_launches(trainer, steps, captures,
+                                           text_encodes=int(trainer.caption_augment > 0))
         per_val = predicted_launches(trainer, 1, text_encodes=0, encodes=1, decodes=0)
     setup = predicted_launches(trainer, 0, text_encodes=1, encodes=0, decodes=0)
-    return {k: steps * per_step[k] + val_batches * per_val[k] + setup_encodes * setup[k]
-            for k in per_step}
+    return {k: trained[k] + val_batches * per_val[k] + setup_encodes * setup[k]
+            for k in trained}
 
 
 def _device_ms(fn):
@@ -2610,19 +2659,24 @@ def phase_fast_full_width(tmp, corpus):
             current["stage"] = name
             release()
             torch.cuda.reset_peak_memory_stats()
-            before = ops.launch_counts()
+            before, g0 = ops.launch_counts(), unet_train_graph_counts()
             t = time.perf_counter()
             best = orig(self)
             torch.cuda.synchronize()
             rec["train_s"] = time.perf_counter() - t
             rec["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
             rec["launches"] = {k: v - before[k] for k, v in ops.launch_counts().items()}
+            rec["unet_train_graphs"] = {k: v - g0[k] for k, v in unet_train_graph_counts().items()}
+            # only stage 2 hands its steps the UNet's training graphs
+            rec["predicted_unet_train_graphs"] = UNetTrainGraphKeys().steps(
+                [FAST_BATCH] * len(rec["step_s"]) if isinstance(self, DiffusionTrainer) else [])
             n_setup = 0
             if isinstance(self, DiffusionTrainer) and not self.caption_augment:
                 n_setup = (-(-self._train_data["images"].shape[0] // 64)
                            + self._val_data["images"].shape[0])
             rec["predicted_launches"] = predicted_fast_launches(
-                self, len(rec["step_s"]), rec["val_batches"], n_setup)
+                self, len(rec["step_s"]), rec["val_batches"], n_setup,
+                captures=rec["predicted_unet_train_graphs"]["capture"])
             rec["skipped_batches"] = self.skipped_batches()
             rec["steps"], rec["best"] = self.state.step, str(best)
             return best
@@ -2690,6 +2744,9 @@ def phase_fast_full_width(tmp, corpus):
         if rec["launches"] != rec["predicted_launches"]:
             fail(f"{name} fast path: launches {rec['launches']} != predicted "
                  f"{rec['predicted_launches']}")
+        if rec["unet_train_graphs"] != rec["predicted_unet_train_graphs"]:
+            fail(f"{name} fast path: UNet training graphs {rec['unet_train_graphs']} != "
+                 f"predicted {rec['predicted_unet_train_graphs']}")
         if rec["skipped_batches"] or not np.isfinite(rec["val_loss"]).all():
             fail(f"{name} fast path: {rec['skipped_batches']} skipped steps, val "
                  f"{rec['val_loss']}")

@@ -29,10 +29,17 @@ takes a ``UNetGraphs`` bound to one parameter tree, which captures the eager
 body once per input shape and replays it for every later call that passes
 that very tree with no gradient and no dropout, on the card.  The graph is
 captured in pieces around the hand-written kernels' calls, which launch from
-the host at every replay (``utils.graphs``).  Any other call runs the eager
-body, as every trainer's does.  Counters
-(``utils.profiling``): ``unet_graph.capture``, ``unet_graph.replay``, and
-``unet_graph.eager`` for a call that was handed a cache and ran eagerly.
+the host at every replay (``utils.graphs``).  Training replays its
+evaluations too, forward and backward: ``unet_apply(graphs=...)`` takes a
+``UNetTrainGraphs`` bound to the trained tree (``DiffusionTrainer`` on one
+card), which captures the forward in pieces around those calls and the
+backward in pieces around the calls of the kernels' autograd backwards,
+and replays both for every later call that passes that very tree with a
+gradient asked, no dropout or the trainer's generator, on the card.  Any
+other call runs the eager body.  Counters (``utils.profiling``):
+``unet_graph.capture``, ``unet_graph.replay``, and ``unet_graph.eager`` for
+a call that was handed a serving cache and ran eagerly; the same three
+``unet_train_graph.*`` of a training cache.
 
 Spans (``utils.profiling``): ``psg.unet.eval`` around an evaluation, and
 inside the eager body one a level, ``psg.unet.enc<i>``, ``psg.unet.mid``
@@ -46,13 +53,14 @@ from __future__ import annotations
 import collections
 import functools
 import threading
+import weakref
 from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from psg_tpu_torch import ops
-from psg_tpu_torch.core import draws
+from psg_tpu_torch.core import draws, tree
 from psg_tpu_torch.nn.attention import dropout as apply_dropout
 from psg_tpu_torch.nn.attention import mha, mha_init
 from psg_tpu_torch.nn.embeddings import sinusoidal_time_embedding
@@ -71,6 +79,9 @@ from psg_tpu_torch.utils.profiling import (
     UNET_GRAPH_CAPTURE,
     UNET_GRAPH_EAGER,
     UNET_GRAPH_REPLAY,
+    UNET_TRAIN_GRAPH_CAPTURE,
+    UNET_TRAIN_GRAPH_EAGER,
+    UNET_TRAIN_GRAPH_REPLAY,
     count,
     span,
 )
@@ -293,15 +304,15 @@ def unet_apply(params, noisy_latent, timesteps, text_seq, spec: UNetSpec, *,
     """Predict noise.  noisy_latent: [B, 27, 27, latent_dim]; timesteps: [B];
     text_seq: [B, S, text_dim] -> [B, 27, 27, latent_dim].  ``dropout``:
     None (no attention dropout), a ``torch.Generator``, or one entry per
-    block (see the module note).  ``graphs``: a ``UNetGraphs`` the call
-    replays where it can (``UNetGraphs.takes``); every other call runs the
-    eager body."""
+    block (see the module note).  ``graphs``: a ``UNetGraphs`` or a
+    ``UNetTrainGraphs`` the call replays where it can (its ``takes``);
+    every other call runs the eager body and counts the cache's ``EAGER``."""
     with span(_SPAN_EVAL):
         if graphs is not None:
             if graphs.takes(params, noisy_latent, timesteps, text_seq, spec,
-                            text_mask, dropout):
-                return graphs(noisy_latent, timesteps, text_seq, text_mask, dtype)
-            count(UNET_GRAPH_EAGER)
+                            text_mask, dropout, dtype):
+                return graphs(noisy_latent, timesteps, text_seq, text_mask, dtype, dropout)
+            count(graphs.EAGER)
         return _unet_body(params, noisy_latent, timesteps, text_seq, spec,
                           text_mask=text_mask, dtype=dtype, dropout=dropout)
 
@@ -366,13 +377,45 @@ def _unet_body(params, noisy_latent, timesteps, text_seq, spec: UNetSpec, *,
 
 
 # ---------------------------------------------------------------------------
-# CUDA-graph replay of evaluations (serving)
+# CUDA-graph replay of evaluations
 # ---------------------------------------------------------------------------
 
-# keys a cache holds captured, the least recently used evicted: a serving
-# deployment's key is its UNet batch (the prompts of a request, twice under
-# fused CFG), so four hold a guided and an unguided sampler at two batch sizes
+# keys a cache holds captured: a serving deployment's key is its UNet batch
+# (the prompts of a request, twice under fused CFG), so four hold a guided
+# and an unguided sampler at two batch sizes (the least recently used is
+# evicted); a trainer's is its batch, so four hold a classic loader's full
+# and short last batch (a key beyond them runs eagerly)
 _GRAPHS_KEPT = 4
+
+
+def _graph_key(dtype, inputs, *extra):
+    """The shapes and dtypes of the inputs (None where absent), the compute
+    dtype and ``extra``."""
+    return (dtype, *extra, *(None if t is None else (t.shape, t.dtype) for t in inputs))
+
+
+class _GraphCache:
+    """What the serving and the training graphs share: one parameter tree
+    and ``UNetSpec``, its captured keys, one memory pool and one capture
+    stream for all of them."""
+
+    def __init__(self, params, spec: UNetSpec):
+        self.params = params
+        self.spec = spec
+        self._entries = collections.OrderedDict()   # key -> entry
+        self._pool = self._stream = None
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def _side_stream(self, device):
+        """The capture stream, made with the pool at the first capture; it
+        waits for the caller's stream first."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(device)
+        self._stream.wait_stream(torch.cuda.current_stream())
+        return self._stream
 
 
 class _Captured(NamedTuple):
@@ -381,7 +424,7 @@ class _Captured(NamedTuple):
     output: torch.Tensor       # static output
 
 
-class UNetGraphs:
+class UNetGraphs(_GraphCache):
     """CUDA graphs of ``unet_apply`` evaluations over one parameter tree and
     one ``UNetSpec``, for a caller that owns fixed weights and asks for no
     gradient (``PokemonGenerator`` on one card).
@@ -408,18 +451,14 @@ class UNetGraphs:
     replace a leaf of this one.
     """
 
-    def __init__(self, params, spec: UNetSpec):
-        self.params = params
-        self.spec = spec
-        self._entries = collections.OrderedDict()   # key -> _Captured
-        self._lock = threading.Lock()
-        self._pool = self._stream = None
+    EAGER = UNET_GRAPH_EAGER
 
-    def __len__(self) -> int:
-        return len(self._entries)
+    def __init__(self, params, spec: UNetSpec):
+        super().__init__(params, spec)
+        self._lock = threading.Lock()
 
     def takes(self, params, noisy_latent, timesteps, text_seq, spec, text_mask,
-              dropout) -> bool:
+              dropout, dtype=None) -> bool:
         """Whether a call replays: this very tree and spec, no dropout, no
         gradient, every input on the card."""
         return (params is self.params and dropout is None
@@ -427,9 +466,9 @@ class UNetGraphs:
                 and all(t is None or t.is_cuda
                         for t in (noisy_latent, timesteps, text_seq, text_mask)))
 
-    def __call__(self, noisy_latent, timesteps, text_seq, text_mask, dtype):
+    def __call__(self, noisy_latent, timesteps, text_seq, text_mask, dtype, dropout=None):
         inputs = (noisy_latent, timesteps, text_seq, text_mask)
-        key = (dtype, *(None if t is None else (t.shape, t.dtype) for t in inputs))
+        key = _graph_key(dtype, inputs)
         with self._lock:
             entry = self._entries.get(key)
             if entry is None:
@@ -444,9 +483,7 @@ class UNetGraphs:
             return entry.output.clone()
 
     def _capture(self, key, inputs, dtype) -> _Captured:
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(inputs[0].device)
+        stream = self._side_stream(inputs[0].device)
         if len(self._entries) >= _GRAPHS_KEPT:
             self._entries.popitem(last=False)
         static = tuple(None if t is None else t.clone(memory_format=torch.contiguous_format)
@@ -456,12 +493,267 @@ class UNetGraphs:
             return _unet_body(self.params, static[0], static[1], static[2], self.spec,
                               text_mask=static[3], dtype=dtype)
 
-        self._stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(self._stream):
+        with torch.cuda.stream(stream):
             body()
         graph = PiecewiseGraph(self._pool)
-        output = graph.capture(body, self._stream)
+        output = graph.capture(body, stream)
         entry = self._entries[key] = _Captured(static, graph, output)
         graph.replay()
         count(UNET_GRAPH_CAPTURE)
         return entry
+
+
+# ---------------------------------------------------------------------------
+# CUDA-graph replay of training evaluations, forward and backward
+# ---------------------------------------------------------------------------
+
+
+def unet_dropout_shapes(spec: UNetSpec, batch: int):
+    """The shapes of the keep masks a training evaluation draws, one entry
+    per block in the order the blocks run (``unet_block_count``): for a
+    block with attention the self- and the cross-attention core's output,
+    [B, heads, L, C / heads], and the FFN's, [B, L, C], L the level's H*W;
+    None for a block without attention."""
+    nlvl, bpl = len(spec.channels), spec.blocks_per_level
+    levels = ([(lvl, spec.attention_levels[lvl]) for lvl in range(nlvl) for _ in range(bpl)]
+              + [(nlvl - 1, True)]
+              + [(lvl, spec.attention_levels[lvl]) for lvl in reversed(range(nlvl))
+                 for _ in range(bpl)])
+    out = []
+    for lvl, attn in levels:
+        c, n = spec.channels[lvl], spec.spatial[lvl] ** 2
+        heads = (batch, spec.num_heads, n, c // spec.num_heads)
+        out.append((heads, heads, (batch, n, c)) if attn else None)
+    return out
+
+
+class _TrainEntry:
+    """One key's training graphs (``UNetTrainGraphs``)."""
+
+    def __init__(self, inputs, uniforms):
+        self.inputs = inputs          # static input buffers, None where the input is None
+        self.uniforms = uniforms      # per block, its masks' static uniforms; None: no dropout
+        self.forward = self.output = None    # the forward's pieces; its static output
+        self.backward = self.grad_out = self.grads = None   # the backward's, once captured
+        self.sources = ()     # per backward call left out, the forward call whose node it takes
+        self.made = None      # the outputs of the last forward replay's left-out calls
+
+
+class _Due:
+    """A replayed forward whose backward has not run yet."""
+
+
+class _ReplayedEval(torch.autograd.Function):
+    """A training evaluation replayed from a ``UNetTrainGraphs`` entry: its
+    inputs are the trained leaves, its output the static output; its
+    backward replays the backward's pieces and returns the leaves'
+    gradients from their static buffers."""
+
+    @staticmethod
+    def forward(ctx, graphs, entry, *leaves):
+        ctx.graphs, ctx.entry = graphs, entry
+        return graphs._forward(entry, ctx)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return (None, None, *ctx.graphs._backward(ctx.entry, grad_out))
+
+
+class UNetTrainGraphs(_GraphCache):
+    """CUDA graphs of ``unet_apply``'s training evaluations, forward and
+    backward, over one parameter tree and one ``UNetSpec``, for a trainer
+    on one card (``DiffusionTrainer``), whose optimizer updates the tree's
+    leaves in place.
+
+    One entry per key: the shapes and dtypes of ``noisy_latent``,
+    ``timesteps``, ``text_seq`` and ``text_mask``, the compute dtype, and
+    whether there is dropout.  The forward is captured in pieces between
+    the calls of ``ops.sdpa`` and ``ops.group_norm_silu`` (62 pieces and 61
+    calls for the default spec), the backward in pieces between the calls
+    of ``FlashSDPA.backward`` and ``GroupNormSiLU.backward`` (``utils.graphs``);
+    every other launch of the evaluation, forward and backward (convolutions,
+    matmuls, the plain norms, casts, adds, the time embedding and the
+    dropout's masks and products), replays from the pieces.  The left-out
+    calls are made at each replay through the names they have then, so a
+    wrapper placed on any of the four sees every call with its shapes and
+    the device time of its kernels.  The forward's calls run with autograd
+    on: each makes a new node, whose saved tensors (q, k, v, o and the
+    logsumexp; x, scale and bias) are this step's, and the backward's calls
+    take these nodes, not the capture's.
+
+    The whole evaluation is one ``torch.autograd.Function`` over the trained
+    leaves (``_ReplayedEval``): its forward copies the inputs into static
+    buffers and replays the forward, and returns the static output (which
+    the next replay overwrites); its backward copies the output's gradient
+    into a static buffer, replays the backward, and returns the leaves'
+    gradients from static buffers (which the next backward overwrites).
+
+    Dropout: with a ``torch.Generator`` the evaluation draws each block's
+    uniforms into static buffers before the replay, from that generator in
+    the eager body's order and shapes (``unet_dropout_shapes``); the graph
+    turns them into the keep masks.  So a replayed step draws what the
+    eager step draws.
+
+    A key's first call captures: it runs one eager forward and backward on
+    a side stream, so that cuDNN and cuBLAS choose their kernels and
+    workspaces outside the capture, captures the forward and replays it;
+    the first backward captures the backward from inside the autograd
+    engine, on the thread that runs the marked backwards, and replays it.
+    So the first step's loss and gradients come from replays.  Every key's
+    graphs allocate from one memory pool, which is sound because a step
+    replays its forward and then its backward before another key's replay:
+    while a replayed forward awaits its backward, other calls run eagerly.
+
+    ``refusal`` says why a call runs the eager body instead: another tree
+    or spec, no gradient asked, dropout masks or a mesh's draws given (a
+    mesh's step gathers a new tree or cuts its draws; a process group
+    anywhere), a backward still due, ``_GRAPHS_KEPT`` other keys held, or
+    an input off the card or needing a gradient.  The graphs read the
+    tree's leaves where they lay at capture: never replace a leaf of this
+    tree (a restored checkpoint is a new tree, which needs a new cache).
+    """
+
+    EAGER = UNET_TRAIN_GRAPH_EAGER
+
+    def __init__(self, params, spec: UNetSpec):
+        super().__init__(params, spec)
+        self.leaves = tree.leaves(params)
+        # what the graphs record and differentiate: leaves of their own over
+        # the tree's memory, so that the capture's autograd graph, made on
+        # the side stream, holds no gradient accumulator of the tree's leaves
+        self._own = tree.map(lambda p: p.detach().requires_grad_(True), params)
+        self._own_leaves = tree.leaves(self._own)
+        self._due = None    # a weak reference to the _Due of the replay awaiting its backward
+
+    def refusal(self, params, noisy_latent, timesteps, text_seq, spec, text_mask,
+                dropout, dtype):
+        """Why a call runs the eager body, or None when it replays."""
+        inputs = (noisy_latent, timesteps, text_seq, text_mask)
+        if params is not self.params or spec != self.spec:
+            return "another tree"
+        if not torch.is_grad_enabled() or not all(p.requires_grad for p in self.leaves):
+            return "no gradient"
+        if dropout is not None and not isinstance(dropout, torch.Generator):
+            return "dropout draws given"
+        if torch.distributed.is_available() and torch.distributed.is_initialized():
+            return "mesh"
+        if self._due is not None and self._due() is not None:
+            return "backward due"
+        if (len(self._entries) >= _GRAPHS_KEPT
+                and _graph_key(dtype, inputs, dropout is not None) not in self._entries):
+            return "keys held"
+        if not all(t is None or (t.is_cuda and not t.requires_grad) for t in inputs) or (
+                dropout is not None and dropout.device.type != "cuda"):
+            return "off the card"
+        return None
+
+    def takes(self, params, noisy_latent, timesteps, text_seq, spec, text_mask,
+              dropout, dtype=None) -> bool:
+        return self.refusal(params, noisy_latent, timesteps, text_seq, spec, text_mask,
+                            dropout, dtype) is None
+
+    def __call__(self, noisy_latent, timesteps, text_seq, text_mask, dtype, dropout=None):
+        inputs = (noisy_latent, timesteps, text_seq, text_mask)
+        key = _graph_key(dtype, inputs, dropout is not None)
+        entry = self._entries.get(key)
+        if entry is None:
+            entry = self._entries[key] = self._new_entry(inputs, dropout is not None)
+        else:
+            for buf, t in zip(entry.inputs, inputs):
+                if buf is not None:
+                    buf.data.copy_(t)   # bumps no version: see _refill in utils.graphs
+        if dropout is not None:   # the eager body's draws, in its order
+            for block in entry.uniforms:
+                for u in block or ():
+                    torch.rand(u.shape, generator=dropout, out=u)
+        if entry.forward is None:
+            try:
+                self._capture(entry, dtype)
+            except BaseException:
+                del self._entries[key]
+                raise
+            count(UNET_TRAIN_GRAPH_CAPTURE)
+        else:
+            count(UNET_TRAIN_GRAPH_REPLAY)
+        return _ReplayedEval.apply(self, entry, *self.leaves)
+
+    def _new_entry(self, inputs, dropout: bool) -> _TrainEntry:
+        """A key's static inputs (copies of ``inputs``) and, with dropout,
+        its uniforms' buffers."""
+        static = tuple(None if t is None else t.clone(memory_format=torch.contiguous_format)
+                       for t in inputs)
+        uniforms = None
+        if dropout:
+            uniforms = [None if shapes is None else tuple(
+                torch.empty(s, device=inputs[0].device) for s in shapes)
+                for shapes in unet_dropout_shapes(self.spec, inputs[0].shape[0])]
+        return _TrainEntry(static, uniforms)
+
+    def _capture(self, entry, dtype) -> None:
+        """One eager forward and backward on the side stream, then the
+        forward's capture."""
+        stream = self._side_stream(entry.inputs[0].device)
+        static, uniforms = entry.inputs, entry.uniforms
+        keep = 1.0 - self.spec.attn_dropout
+
+        def body():
+            masks = None if uniforms is None else [
+                None if u is None else tuple(x < keep for x in u) for u in uniforms]
+            return _unet_body(self._own, static[0], static[1], static[2], self.spec,
+                              text_mask=static[3], dtype=dtype, dropout=masks)
+
+        with torch.cuda.stream(stream):
+            out = body()
+            torch.autograd.grad(out, self._own_leaves, torch.ones_like(out),
+                                allow_unused=True)
+            del out
+        entry.forward = PiecewiseGraph(self._pool)
+        entry.output = entry.forward.capture(body, stream)
+
+    def _forward(self, entry, ctx):
+        """Replay the forward; each left-out call runs with autograd on and
+        keeps its output, whose node the backward takes."""
+        made = entry.made = [None] * len(entry.forward.calls)
+
+        def call(i, fn, args, kwargs):
+            with torch.enable_grad():
+                made[i] = fn(*args, **kwargs)
+            return made[i]
+
+        entry.forward.replay(call)
+        ctx.due = due = _Due()
+        self._due = weakref.ref(due)
+        return entry.output.detach()
+
+    def _backward(self, entry, grad_out):
+        """Replay the backward (captured at the first call) on this step's
+        nodes; the leaves' gradients."""
+        if entry.backward is None:
+            self._capture_backward(entry, grad_out)
+        else:
+            entry.grad_out.copy_(grad_out)
+        made = entry.made
+
+        def call(i, fn, args, kwargs):
+            return fn(made[entry.sources[i]].grad_fn, *args[1:], **kwargs)
+
+        entry.backward.replay(call)
+        entry.made = self._due = None
+        return entry.grads
+
+    def _capture_backward(self, entry, grad_out) -> None:
+        """Capture the backward of the capture's autograd graph, from the
+        engine's thread that runs this backward and so the marked ones."""
+        stream = self._side_stream(grad_out.device)
+        entry.grad_out = grad_out.clone(memory_format=torch.contiguous_format)
+        graph = PiecewiseGraph(self._pool)
+        grads = graph.capture(lambda: torch.autograd.grad(
+            entry.output, self._own_leaves, entry.grad_out, allow_unused=True), stream)
+        nodes = {id(c.out.grad_fn): i for i, c in enumerate(entry.forward.calls)}
+        missing = [c.path for c in graph.calls if id(c.args[0]) not in nodes]
+        if missing:
+            raise RuntimeError(f"UNetTrainGraphs: backward calls {missing} take no node "
+                               f"of the forward's left-out calls")
+        entry.sources = tuple(nodes[id(c.args[0])] for c in graph.calls)
+        entry.grads = tuple(None if g is None else g.detach() for g in grads)
+        entry.backward = graph

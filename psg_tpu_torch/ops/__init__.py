@@ -29,9 +29,11 @@ bias goes to the flash kernel, any other bias that broadcasts to
 reference's ``sdpa_xla``, on either device.  The kernel refuses such a bias,
 as the TPU kernel does, so the dispatch hides no kernel.
 
-``sdpa`` and ``group_norm_silu`` are marked ``utils.graphs.eager_between``:
-a CUDA graph captured in pieces (the serving UNet's, ``models.unet``)
-leaves their calls out and makes them from the host at each replay.
+``sdpa`` and ``group_norm_silu`` are marked ``utils.graphs.eager_between``,
+and so are the backwards of ``FlashSDPA`` and ``GroupNormSiLU``: a CUDA
+graph captured in pieces (the UNet's, ``models.unet``, for serving and for
+training) leaves their calls out and makes them from the host at each
+replay.
 """
 
 from __future__ import annotations

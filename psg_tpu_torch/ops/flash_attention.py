@@ -39,6 +39,7 @@ import ctypes
 import torch
 
 from psg_tpu_torch.ops import cuda_build as cb
+from psg_tpu_torch.utils.graphs import eager_between
 
 KERNEL = cb.KernelLibrary(
     "flash_attention", "flash_attention.cu",
@@ -219,7 +220,9 @@ class FlashSDPA(torch.autograd.Function):
     """``forward_impl(q, k, v, bias, scale)`` gives the output and its
     logsumexp (the forward kernel on the card); the backward launches the
     backward kernel on the card and takes ``sdpa_backward_plain`` on the
-    CPU, for q, k and v."""
+    CPU, for q, k and v.  The backward is marked
+    ``utils.graphs.eager_between``: a training graph captured in pieces
+    (``models.unet``) makes it from the host at each replay."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale, forward_impl):
@@ -229,6 +232,7 @@ class FlashSDPA(torch.autograd.Function):
         return out
 
     @staticmethod
+    @eager_between
     def backward(ctx, grad_out):
         q, k, v, out, lse, bias = ctx.saved_tensors
         if q.device.type == "cpu":

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from psg_tpu_torch.nn.layers import group_norm
 from psg_tpu_torch.ops import cuda_build as cb
+from psg_tpu_torch.utils.graphs import eager_between
 
 KERNEL = cb.KernelLibrary(
     "group_norm_silu", "group_norm_silu.cu",
@@ -77,7 +78,9 @@ def _launch(params, x, num_groups: int, eps: float, silu: bool):
 class GroupNormSiLU(torch.autograd.Function):
     """``forward_impl(params, x, num_groups, eps, silu)`` computes the output
     (the kernel's launch on the card); the backward differentiates the plain
-    version, recomputed from the saved inputs."""
+    version, recomputed from the saved inputs.  The backward is marked
+    ``utils.graphs.eager_between``: a training graph captured in pieces
+    (``models.unet``) makes it from the host at each replay."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, num_groups, eps, silu, forward_impl):
@@ -86,6 +89,7 @@ class GroupNormSiLU(torch.autograd.Function):
         return forward_impl({"scale": scale, "bias": bias}, x, num_groups, eps, silu)
 
     @staticmethod
+    @eager_between
     def backward(ctx, grad_out):
         x, scale, bias = ctx.saved_tensors
         num_groups, eps, silu = ctx.args

@@ -12,6 +12,14 @@ clip, AdamW) and the EMA of the parameters, ``d*e + (1-d)*p`` after the
 update.  On the card GroupNorm+SiLU and flash attention run their kernels
 forward and differentiate their plain versions backward (``ops``).
 
+The training step's UNet evaluation, forward and backward, replays from
+CUDA graphs on one card (``models.unet.UNetTrainGraphs``, ``unet_graphs``,
+made for the state's tree at the start and after a restore): a step with
+the trainer's generator or no dropout, on the card and off a mesh, replays
+the graphs of its batch's shapes, captured at that shape's first step; a
+step with injected dropout masks, on the CPU or on a mesh runs the eager
+body.  Validation and sampling never replay them.
+
 Randomness: the trainer's ``torch.Generator`` (seeded from ``cfg.seed``,
 saved in the train state) draws the reparameterize noise, ``t``, the noise,
 the cond-dropout mask and the dropout masks, in that order.  Torch cannot
@@ -66,6 +74,7 @@ from psg_tpu_torch.diffusion.schedule import make_schedule
 from psg_tpu_torch.models.losses import mse_loss, smooth_l1_loss
 from psg_tpu_torch.models.text_encoder import text_encoder_apply, text_encoder_init
 from psg_tpu_torch.models.unet import (  # noqa: F401  (re-exported, as in psg_tpu)
+    UNetTrainGraphs,
     text_bias_from_mask,
     unet_apply,
     unet_init,
@@ -126,6 +135,7 @@ class DiffusionTrainer(FastPath, StageTrainer):
             tree.map(lambda _: "unet", unet_params))
         self.ema_decay = float(o.ema_decay)
         self._start(unet_params)
+        self._after_restore()     # the training graphs of the state's tree
         self.loss_kind = extra.get("diffusion_loss", "smooth_l1")
         self.pred_type = str(extra.get("prediction_type", "eps"))
         if self.pred_type not in ("eps", "v"):
@@ -203,7 +213,7 @@ class DiffusionTrainer(FastPath, StageTrainer):
             text_emb = text_emb * keep.to(text_emb.dtype)
         pred = unet_apply(unet_params, noisy.to(latent.dtype), t, text_emb, self.spec,
                           text_mask=batch["text_mask"], dtype=self.compute_dtype,
-                          dropout=dropout)
+                          dropout=dropout, graphs=self.unet_graphs if train else None)
         target = noise if self.pred_type == "eps" else self.schedule.velocity(latent, noise, t)
         if train and self.snr_gamma > 0.0:
             acp = self.schedule.alphas_cumprod.to(self.device)[t]
@@ -288,6 +298,11 @@ class DiffusionTrainer(FastPath, StageTrainer):
 
         return self._save_grid(epoch, self.ds.full_descriptions[:num], f"epoch_{epoch:04d}.png",
                                sample)
+
+    def _after_restore(self) -> None:
+        """The training graphs of the state's tree (a restore makes a new
+        one)."""
+        self.unet_graphs = UNetTrainGraphs(self.state.params, self.spec)
 
     def _meta(self, epoch: int, classic: bool = False) -> Dict:
         return {"epoch": epoch, "vae_checkpoint": self.vae_ckpt_path,

@@ -12,12 +12,15 @@
   ``reset_counts``): ``host_reads``, one at the optimizer's device-to-host
   read of the step's finite flag and norms; ``launch.<library>``, the
   kernel launches each ``ops`` library makes from the host (a launch
-  captured into a CUDA graph once, its replays never; the serving UNet's
-  graphs leave these kernels out, ``utils/graphs.py``, so each of its
-  evaluations counts them); and the UNet's graphs (``models/unet.py``):
+  captured into a CUDA graph once, its replays never; the UNet's graphs
+  leave these kernels out, ``utils/graphs.py``, so each of its evaluations
+  counts them, forward and backward); and the UNet's graphs
+  (``models/unet.py``):
   ``unet_graph.capture`` and ``unet_graph.replay``, and
   ``unet_graph.eager`` for an evaluation handed a graph cache that ran its
-  eager body;
+  eager body; the same three of the training graphs, whose evaluation
+  replays its forward and its backward, ``unet_train_graph.capture``,
+  ``.replay`` and ``.eager``;
 - ``trace``: a ``torch.profiler`` capture of everything inside the block,
   written as a Chrome trace (view in Perfetto);
 - ``StepTimer``: per-step times; on the card from CUDA events recorded on
@@ -51,6 +54,9 @@ HOST_READS = "host_reads"
 UNET_GRAPH_CAPTURE = "unet_graph.capture"
 UNET_GRAPH_REPLAY = "unet_graph.replay"
 UNET_GRAPH_EAGER = "unet_graph.eager"
+UNET_TRAIN_GRAPH_CAPTURE = "unet_train_graph.capture"
+UNET_TRAIN_GRAPH_REPLAY = "unet_train_graph.replay"
+UNET_TRAIN_GRAPH_EAGER = "unet_train_graph.eager"
 _counts: Dict[str, int] = {}
 
 

@@ -21,15 +21,18 @@ the summed device time of its kernels, their number, the device's idle share
 ten heaviest kernels, and the device time of each kernel Function's backward
 (``function_backward``): CUDA events around each autograd Function's
 backward (the script wraps them; the backward runs on the current stream, so
-the interval holds exactly its kernels and the gaps between them), summed per
-step, with what that backward is: FlashSDPA's launches the backward kernel
+the interval holds exactly its kernels and the gaps between them; a stage-2
+step replays its UNet's backward from CUDA graphs, between whose pieces
+these backwards are still called, and the capture is left untimed), summed
+per step, with what that backward is: FlashSDPA's launches the backward kernel
 (csrc/flash_attention_bwd.cu), GroupNormSiLU's and SpatialXattn's recompute
 their plain versions; and the program's ``psg.*`` spans in the profiled
 run (``spans``, as ``scripts/torch_profile_serve.py`` prints them: every
 stage trainer's ``psg.train.step``, ``grads``, ``forward``, ``backward``,
 ``optimizer`` and stage 2's ``ema``, the fast path's ``fast_batch``, the optimizer's
 ``psg.optim.stats`` and ``adam``, and the UNet's).  Then the step's
-samples/s and peak device memory.
+samples/s, peak device memory and the training graphs' counters
+(``unet_train_graph.capture``, ``.replay`` and ``.eager``).
 
 Parts.  Stage 2: the forward to the loss (frozen text and VAE encoders,
 q_sample, the UNet), the backward, the optimizer and the EMA.  Stage 1: the
@@ -99,6 +102,8 @@ def time_backwards():
     for cls in (fused_norm.GroupNormSiLU, flash_attention.FlashSDPA,
                 spatial_xattn.SpatialXattn):
         def timed(ctx, grad, _orig=cls.backward, _name=cls.__name__):
+            if torch.cuda.is_current_stream_capturing():   # a training graph's capture
+                return _orig(ctx, grad)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
                 enable_timing=True)
             start.record()
@@ -567,7 +572,9 @@ def main():
         bs, step, skipped = profile_fn(cfg, args)
         print(json.dumps({"card": CARD, "samples_per_s": bs / (step["wall_ms"] / 1e3),
                           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-                          "skipped_batches": skipped}), flush=True)
+                          "skipped_batches": skipped,
+                          "counters": {k: v for k, v in profiling.counts().items()
+                                       if k.startswith("unet_train_graph.")}}), flush=True)
     print(smi, flush=True)
 
 
